@@ -2,7 +2,7 @@
 
   1. ingest: transcripts dir -> embeddings -> FAISS-format index
      (the MCP pipeline tool, run in-process)
-  2. serve: load the artifact into the TPU engine
+  2. serve: load the artifact into the engine
   3. query: exact retrieval, fused quantum rerank, routed /rerank
 
 Run: python examples/full_workflow.py

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Round-2 feature demo: sharded + elastic serving, streaming MCP.
 
-Runs self-contained on CPU (8 virtual devices) or TPU:
+Runs self-contained on the CPU (8 virtual devices):
 
   1. build a corpus and serve it ROW-SHARDED over all devices with
      elastic recovery (the `qrag-serve --sharded --elastic` path);
@@ -20,10 +20,10 @@ import tempfile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # This is a MULTI-DEVICE demo: always run on the 8-virtual-device CPU
-# mesh (a single-chip TPU can't show re-sharding).  APPEND to existing
-# XLA_FLAGS (the environment pre-sets some; conftest.py does the same)
-# and select the platform via jax.config BEFORE any backend query —
-# jax.default_backend() would initialize the TPU and pin it.
+# mesh (one card can't show re-sharding).  APPEND to existing
+# XLA_FLAGS (conftest.py does the same) and select the platform via
+# jax.config BEFORE any backend query — jax.default_backend() would
+# initialize the default platform and pin it.
 _flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in _flags:
     os.environ["XLA_FLAGS"] = (

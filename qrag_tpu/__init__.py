@@ -1,4 +1,4 @@
-"""qrag_tpu — a TPU-native retrieval-and-rerank engine.
+"""qrag_tpu — an exact retrieval-and-rerank engine in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference "quantum-rag" project (jon-fox/quantum-rag): exact dense

@@ -55,8 +55,8 @@ class ClassicalConfig:
 
     ``method`` selects the scorer:
       - "cosine": cosine similarity between embeddings (default here —
-        runs entirely on TPU; the reference's torch CrossEncoder is not
-        a TPU-native scorer)
+        runs on the device; the reference's torch CrossEncoder is not
+        available here)
       - "cross-encoder": the JAX cross-encoder model
         (``qrag_tpu/models/cross_encoder.py``)
     """
@@ -100,9 +100,10 @@ class IndexConfig:
     metric: str = "l2"  # "l2" or "ip"; reference builds IndexFlatL2
     dtype: str = "float32"  # device-matrix dtype: "float32" | "bfloat16"
     normalize: bool = True  # normalize vectors at ingestion (north star)
-    # Pad corpus rows to a multiple of this (TPU lane/time alignment).
+    # Pad corpus rows to a multiple of this (whole 128-row windows).
     row_pad_multiple: int = 128
-    # Use the Pallas fused scan+top-k kernel when possible.
+    # Non-exact modes use the memory-lean windowed scan
+    # (ops/window_scan.py; the fused kernel on a GPU).
     use_pallas: bool = False
     # Top-k selection: "exact" (lax.top_k), "approx" (hardware
     # partial-reduce + oversample), "verified" (approx + exactness
@@ -112,28 +113,24 @@ class IndexConfig:
     # top-k via norm-bounded window pruning — ops/bounded_topk.py;
     # identity AND tie order exact, one scan pass, no (B, N) matrix).
     #
-    # Default "bounded" since round 5: it is strictly stronger than
-    # the old "verified" default (exact identity AND tie order, w.r.t.
-    # the f32 query) and ~4.7x its throughput (94.9k vs 20.1k QPS at
-    # 1M x 768/chip, zero cert fallbacks — docs/PERFORMANCE.md r5).
-    # Cost: on a float32 store it caches a bf16 scan copy (+50%
+    # Default "bounded": it is strictly stronger than "verified"
+    # (exact identity AND tie order, w.r.t. the f32 query) and needs
+    # no second pass over the scores.  Cost: on a float32 store it caches a bf16 scan copy (+50%
     # corpus HBM single-device; per-call cast when sharded) — prefer
     # dtype="bfloat16" for large production corpora.  Small/odd-shaped
     # corpora degrade to the exact sort (cheap there).
     topk_mode: str = "bounded"
     # With topk_mode="bounded": the scan arithmetic. "bf16" (packed
     # float planes) or "int8" (EXACT integer dots of per-window int8
-    # codes at the int8 MXU rate — ~1.7x the bf16 matmul on v5e via
-    # XLA, r4 lab — with margins extended to the quantization
-    # residual; ops/bounded_topk.bounded_exact_topk_int8).  Both are
+    # codes — with margins extended to the quantization residual;
+    # ops/bounded_topk.bounded_exact_topk_int8).  Both are
     # provably exact w.r.t. the stored corpus.
     bounded_scan: str = "bf16"
     # With topk_mode="bounded": "float32" (default) keeps exactness
     # w.r.t. the query as given; "store" rounds queries to the store
     # dtype first — provably exact w.r.t. the ROUNDED query (the
     # fp16-store contract of e.g. GPU FAISS), collapsing the margin
-    # regime to narrow on a bf16 store (~81k vs 65.5k QPS at 1M x 768;
-    # docs/PERFORMANCE.md "Margin-regime census").
+    # regime to narrow on a bf16 store (lean certificate budgets).
     bounded_query_dtype: str = "float32"
     # Small-batch latency accelerator: "none" | "clustered" |
     # "clustered_probe".
@@ -160,18 +157,17 @@ class IndexConfig:
     # strictly better.  0 disables the guard.
     accel_read_cap: float = 0.5
     # "none" | "int8": int8 scan with exact refinement
-    # (index/quantized_index.py) — ~2x scan bandwidth/MXU rate.
+    # (index/quantized_index.py) — half the scan bytes of bf16.
     quantization: str = "none"
     # candidates = refine_factor * k for the quantized scan
     refine_factor: int = 4
-    # quantized scan backend: "row" (per-row scales + approx_max_k;
-    # fastest on v5e) or "window" (packed window-argmax Pallas scan,
-    # ops/window_scan.py — the score matrix never exists: memory-lean)
+    # quantized scan backend: "row" (per-row scales + approx_max_k)
+    # or "window" (packed window-argmax scan, ops/window_scan.py:
+    # selection over (B, N/128) planes)
     quant_scan: str = "row"
     # With quant_scan="window": exact_scores=False skips the
-    # candidate-row re-score GATHER entirely (the gather-free mode,
-    # docs/PERFORMANCE.md: 67k QPS at zero score-matrix memory on
-    # v5e vs 52k with the gather).  Returned scores are then
+    # candidate-row re-score GATHER entirely (the gather-free mode).
+    # Returned scores are then
     # APPROXIMATE (block-int8 dot products converted to l2 via exact
     # sqnorms: ~1% error); indices are approx-class like the rest of
     # the windowed pipeline.  serve CLI: --lean-scan.

@@ -31,6 +31,7 @@ from qrag_tpu.documents import Document
 from qrag_tpu.index.flat_index import DeviceFlatIndex, SearchResult
 from qrag_tpu.ops.statevector import fidelity_analytic, fidelity_statevector
 from qrag_tpu.ops.topk import flat_scan_topk
+from qrag_tpu.platform import scan_route
 from qrag_tpu.pipeline.embeddings import Embedder, get_embedder
 from qrag_tpu.reranker.controller import RerankerController
 from qrag_tpu.utils.compilation_cache import enable_compilation_cache
@@ -117,7 +118,6 @@ def _fused_candidates(
                 lr, candidates,
                 metric=metric,
                 valid_rows=valid_rows,
-                backend=bounded_backend,
             )
         else:
             scan, maxnorms, lane_rank = bounded_bufs
@@ -464,7 +464,7 @@ class QragEngine:
             k_eff = min(k, c_eff)
             if not self.index.has_device_snapshot:
                 # sharded index (parallel/sharded_index.py): per-shard
-                # scan + ICI merge + distributed candidate gather — the
+                # scan + collective merge + distributed candidate gather — the
                 # served path of BASELINE configs[4]
                 return self._search_rerank_sharded(
                     qv, query_texts, n, k_eff, c_eff, reranker_type
@@ -623,27 +623,15 @@ class QragEngine:
                 # gathers from (pre-existing race, fixed r4 final)
                 if kind == "int8":
                     snap, bufs = self.index._bounded_buffers_int8(snap=snap)
-                    n, d = snap.matrix.shape
-                    backend = (
-                        "pallas"
-                        if jax.default_backend() == "tpu"
-                        and n % 1024 == 0
-                        and d % 128 == 0
-                        else "xla"
-                    )
+                    route = {}
                 else:
                     snap, bufs = self.index._bounded_buffers(snap=snap)
-                    n, d = snap.matrix.shape
-                    backend = (
-                        "pallas"
-                        if jax.default_backend() == "tpu"
-                        and n % 512 == 0
-                        and d % 128 == 0
-                        else "xla"
-                    )
+                    route = {"bounded_backend": scan_route(
+                        *bufs[0].shape, bufs[0].dtype
+                    )}
                 return "bounded", {
                     "bounded_bufs": bufs,
-                    "bounded_backend": backend,
+                    **route,
                     "bounded_kind": kind,
                     "bounded_query_store": (
                         getattr(
@@ -849,18 +837,22 @@ class QragEngine:
 
         @functools.partial(
             jax.jit,
-            static_argnames=("c", "metric", "backend", "kind", "qstore"),
+            static_argnames=(
+                "c", "metric", "bounded_backend", "bounded_kind",
+                "bounded_query_store",
+            ),
         )
         def _retrieve_bounded_impl(
-            q, matrix, sqnorms, valid, bufs, c, metric, backend, kind,
-            qstore,
+            q, matrix, sqnorms, valid, bounded_bufs, c, metric,
+            bounded_kind, bounded_query_store, bounded_backend="xla",
         ):
             # provably-exact pipelined stage-1 (VERDICT r3 weak #5):
             # same in-graph bounded candidate generation as the fused
             # single-graph paths
             return _fused_candidates(
-                q, matrix, sqnorms, valid, c, metric, "bounded", bufs,
-                backend, kind, qstore,
+                q, matrix, sqnorms, valid, c, metric, "bounded",
+                bounded_bufs, bounded_backend, bounded_kind,
+                bounded_query_store,
             )
 
         @functools.partial(
@@ -892,16 +884,8 @@ class QragEngine:
             mode, bkw = self._fused_candidate_mode(c, snap=snap)
             if mode == "bounded":
                 return _retrieve_bounded_impl(
-                    q,
-                    snap.matrix,
-                    snap.sqnorms,
-                    snap.valid,
-                    bkw["bounded_bufs"],
-                    c,
-                    index.metric,
-                    bkw["bounded_backend"],
-                    bkw["bounded_kind"],
-                    bkw["bounded_query_store"],
+                    q, snap.matrix, snap.sqnorms, snap.valid,
+                    c=c, metric=index.metric, **bkw,
                 )
             return _retrieve_impl(
                 q, snap.matrix, snap.sqnorms, snap.valid, c, index.metric,

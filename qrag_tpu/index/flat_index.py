@@ -1,9 +1,9 @@
 """HBM-resident exact flat index.
 
-The TPU-native replacement for the reference's on-disk FAISS
+The device-resident replacement for the reference's on-disk FAISS
 ``IndexFlatL2`` (``store_in_faiss.py:102-109``): the corpus lives as a
-padded float32 matrix in device HBM, searched by a single jit-compiled
-matmul+top-k scan (XLA or the Pallas fused kernel).  The host keeps the
+padded float32 matrix in device memory, searched by a single
+jit-compiled scan + top-k (XLA, or the fused Pallas kernel on a GPU).  The host keeps the
 master copy for append/save; the device buffer is grown geometrically so
 appends within capacity never recompile the search graph.
 
@@ -28,6 +28,7 @@ import numpy as np
 
 from qrag_tpu.index import faiss_io
 from qrag_tpu.ops.topk import flat_scan_topk, scan_topk_verified
+from qrag_tpu.platform import scan_route
 
 MANIFEST_NAME = "manifest.json"
 VECTORS_NAME = "vectors.npy"
@@ -178,8 +179,7 @@ class DeviceFlatIndex:
         # scan — the result is then provably exact w.r.t. the ROUNDED
         # query (the fp16-store contract of e.g. GPU FAISS), which on a
         # bf16 store collapses the margin regime to narrow and buys the
-        # lean budgets (~81k vs 65.5k QPS at 1M x 768; PERFORMANCE.md
-        # "Margin-regime census").  Default "float32" keeps exactness
+        # lean certificate budgets.  Default "float32" keeps exactness
         # w.r.t. the query as given.
         self.bounded_query_dtype = bounded_query_dtype
         self.d = int(d)
@@ -519,14 +519,6 @@ class DeviceFlatIndex:
             snap, (q8x, wscale, mx, minsq, resid, lr) = (
                 self._bounded_buffers_int8()
             )
-            n, d = snap.matrix.shape
-            backend = (
-                "pallas"
-                if jax.default_backend() == "tpu"
-                and n % 1024 == 0
-                and d % 128 == 0
-                else "xla"
-            )
             return bounded_exact_topk_int8(
                 queries,
                 q8x,
@@ -540,17 +532,8 @@ class DeviceFlatIndex:
                 k,
                 metric=self.metric,
                 valid_rows=snap.valid,
-                backend=backend,
             )
         snap, (scan, mx, lr) = self._bounded_buffers()
-        n, d = snap.matrix.shape
-        backend = (
-            "pallas"
-            if jax.default_backend() == "tpu"
-            and n % 512 == 0
-            and d % 128 == 0
-            else "xla"
-        )
         return bounded_exact_topk(
             queries,
             scan,
@@ -561,7 +544,7 @@ class DeviceFlatIndex:
             k,
             metric=self.metric,
             valid_rows=snap.valid,
-            backend=backend,
+            backend=scan_route(*scan.shape, scan.dtype),
         )
 
     def _accel_eligible(self, batch: int, k: int) -> bool:

@@ -5,7 +5,7 @@ mmap-backed append-only float32 row store with a binary manifest and a
 C++ exact scan+top-k (heap selection, lower-index tie-break — matching
 ``lax.top_k`` and the Pallas kernel).  It plays the role faiss-cpu's
 C++ played for the reference: durable index storage and a CPU scan
-oracle; the TPU path loads from it via `to_device_index`.
+oracle; the device path loads from it via `to_device_index`.
 
 The shared library auto-builds on first use (``make -C
 qrag_tpu/native``; g++ is part of the image).
@@ -304,7 +304,7 @@ class NativeVectorStore:
     # ------------------------------------------------------------- bridges
 
     def to_device_index(self, **kwargs):
-        """Load into the TPU-resident DeviceFlatIndex."""
+        """Load into the device-resident DeviceFlatIndex."""
         from qrag_tpu.index.flat_index import DeviceFlatIndex
 
         return DeviceFlatIndex.from_numpy(

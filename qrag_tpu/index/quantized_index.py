@@ -7,17 +7,14 @@ top candidates.  Returned scores are therefore exact; only candidate
 recall depends on quantization, controlled by ``refine_factor``
 (candidates = refine_factor × k).
 
-Two scan modes (honest v5e numbers at 1M x 768 / B=1024):
+Two scan modes (device times: not measured on a GPU yet):
 
 * ``scan="row"`` (default): per-row scales, rescaled f32 scores
-  through ``approx_max_k`` (``ops.quantize.int8_scan_topk``) — ~13 ms.
+  through ``approx_max_k`` (``ops.quantize.int8_scan_topk``).
 * ``scan="window"``: the windowed packed-argmax scan
-  (``ops/window_scan.py``, Pallas backend) — per-128-row-BLOCK scales
-  aligned with selection windows; the (B, N) score matrix NEVER
-  exists (in HBM or at all), so peak memory is corpus-only: the mode
-  for B*N-too-big-for-HBM and memory-constrained serving.  ~18 ms
-  end-to-end (the exact-rescore row gather dominates; see
-  docs/PERFORMANCE.md).
+  (``ops/window_scan.py``) — per-128-row-BLOCK scales aligned with
+  selection windows, so selection runs on (B, N/128) planes and the
+  exact re-score gathers one row per selected window.
 
 Memory for 1M×768: 0.77 GB int8 + 1.5 GB bf16 ≈ 2.3 GB; the scan
 reads only the int8 half.  The quantized buffers live inside the
@@ -89,12 +86,6 @@ class QuantizedFlatIndex(DeviceFlatIndex):
                 "window scan needs row_pad_multiple % 128 == 0 "
                 f"(got {self.row_pad_multiple})"
             )
-        if scan == "window":
-            # round device-buffer capacity to the TRANSPOSED Mosaic
-            # kernel's tile (bn=1024, r4) so the Pallas backend takes
-            # the lane-aligned-plane path whenever the feature dim
-            # allows it
-            self.row_pad_multiple = -(-self.row_pad_multiple // 1024) * 1024
         self.refine_factor = max(1, int(refine_factor))
         self.scan = scan
         self.exact_scores = bool(exact_scores)
@@ -138,8 +129,6 @@ class QuantizedFlatIndex(DeviceFlatIndex):
             exact_topk_int8_domain,
             full_topk_int8_domain,
         )
-        from qrag_tpu.ops.pallas.fused_scan import pallas_ready
-
         x8, bscales, lane_rank = snap.extras["int8w"]
         row_isq = snap.extras["int8w_isq"]
         if nw < max(2 * k, 16):
@@ -150,16 +139,11 @@ class QuantizedFlatIndex(DeviceFlatIndex):
                 metric=self.metric, valid_rows=snap.valid,
             )
             return _finalize(vals, idx, self.metric)
-        use_pallas = (
-            jax.default_backend() == "tpu"
-            and pallas_ready(x8.shape[0], x8.shape[1])
-        )
         vals, idx, fell_back, _, escalated = exact_topk_int8_domain(
             q32, x8, bscales, row_isq, lane_rank, k,
             metric=self.metric,
             valid_rows=snap.valid,
             candidates=max(16, k),
-            backend="pallas" if use_pallas else "xla",
         )
         self.fallback_rows += int(np.asarray(fell_back))
         self.bounded_escalations += int(np.asarray(escalated))
@@ -189,17 +173,7 @@ class QuantizedFlatIndex(DeviceFlatIndex):
                 mode="exact",
             )
         if self.scan == "window":
-            from qrag_tpu.ops.pallas.fused_scan import pallas_ready
-
             x8, bscales, lane_rank = snap.extras["int8w"]
-            # Mosaic kernel on TPU (XLA won't fuse the epilogue there)
-            # WHEN the buffer shapes satisfy its tiling (d % 128,
-            # padded-N % 512); otherwise the XLA backend, which only
-            # needs the N % 128 the index padding already guarantees
-            use_pallas = (
-                jax.default_backend() == "tpu"
-                and pallas_ready(x8.shape[0], x8.shape[1])
-            )
             vals, final_idx = windowed_scan_topk(
                 q32,
                 x8,
@@ -211,7 +185,6 @@ class QuantizedFlatIndex(DeviceFlatIndex):
                 window_scale=bscales,
                 ntotal=jnp.asarray(snap.ntotal),
                 refine_factor=self.refine_factor,
-                backend="pallas" if use_pallas else "xla",
                 exact_scores=self.exact_scores,
             )
             return _finalize(vals, final_idx, self.metric)

@@ -42,6 +42,7 @@ from qrag_tpu.models.cross_encoder import (
     init_params as _init_tower_params,
     partition_spec as _tower_partition_spec,
 )
+from qrag_tpu.platform import compute_dtype
 
 
 @dataclass
@@ -176,9 +177,7 @@ class TrainedEmbedder:
             cfg = BiEncoderConfig(
                 tower=CrossEncoderConfig(
                     max_len=128,
-                    dtype=jnp.bfloat16
-                    if jax.default_backend() == "tpu"
-                    else jnp.float32,
+                    dtype=compute_dtype(),
                 )
             )
         self.cfg = cfg
@@ -269,9 +268,7 @@ def _load_config(directory: str) -> Optional[BiEncoderConfig]:
             n_layers=t.get("n_layers", 4),
             mlp_ratio=t.get("mlp_ratio", 4),
             n_experts=t.get("n_experts", 4),
-            dtype=jnp.bfloat16
-            if jax.default_backend() == "tpu"
-            else jnp.float32,
+            dtype=compute_dtype(),
         ),
         out_dim=d.get("out_dim", 256),
         temperature=d.get("temperature", 20.0),

@@ -3,7 +3,7 @@
 The reference scores (query, document) pairs with a pretrained torch
 CrossEncoder (``src/reranker/classical.py:45-77``, model
 ``cross-encoder/ms-marco-MiniLM-L-6-v2``, 512-token inputs, batch 32).
-This environment has no weight downloads, so the TPU-native counterpart
+This environment has no weight downloads, so the JAX counterpart
 is a from-scratch transformer cross-encoder trained on-device:
 
   * byte-level tokenizer (no external vocab), CLS/SEP framing:
@@ -35,6 +35,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
+
+from qrag_tpu.platform import compute_dtype
 
 # ---------------------------------------------------------------- tokenizer
 
@@ -476,9 +478,7 @@ def _load_scorer_config(directory: str) -> Optional[CrossEncoderConfig]:
         n_experts=d.get("n_experts", 4),
         head_type=d.get("head_type", "cls"),
         interaction_temp=d.get("interaction_temp", 20.0),
-        dtype=jnp.bfloat16
-        if jax.default_backend() == "tpu"
-        else jnp.float32,
+        dtype=compute_dtype(),
     )
 
 
@@ -495,11 +495,8 @@ class CrossEncoderScorer:
         seed: int = 0,
     ):
         if cfg is None:
-            # CPU's DotThunk lacks bf16 x bf16 -> f32; bf16 on TPU only
             cfg = CrossEncoderConfig(
-                dtype=jnp.bfloat16
-                if jax.default_backend() == "tpu"
-                else jnp.float32
+                dtype=compute_dtype()
             )
         self.cfg = cfg
         self.params = (
@@ -526,9 +523,7 @@ class CrossEncoderScorer:
         if cfg is None:
             cfg = CrossEncoderConfig(
                 max_len=min(classical_config.max_sequence_length, 512),
-                dtype=jnp.bfloat16
-                if jax.default_backend() == "tpu"
-                else jnp.float32,
+                dtype=compute_dtype(),
             )
         scorer = cls(cfg)
         if os.path.exists(path):

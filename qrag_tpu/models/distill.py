@@ -68,6 +68,7 @@ def default_teacher_embedder(n_qubits: int, weights_dir: Optional[str] = None):
     from qrag_tpu.models.cross_encoder import CrossEncoderConfig
 
     import jax
+    from qrag_tpu.platform import compute_dtype
     import jax.numpy as jnp
 
     cfg = BiEncoderConfig(
@@ -76,9 +77,7 @@ def default_teacher_embedder(n_qubits: int, weights_dir: Optional[str] = None):
             n_heads=2,
             n_layers=1,
             max_len=128,
-            dtype=jnp.bfloat16
-            if jax.default_backend() == "tpu"
-            else jnp.float32,
+            dtype=compute_dtype(),
         ),
         out_dim=max(32, 2 * n_qubits),
     )
@@ -178,6 +177,7 @@ def _agreement(items, student_scores, teacher_scores, docs_per_query):
 
 def distill(cfg: Optional[DistillConfig] = None) -> Dict[str, object]:
     import jax
+    from qrag_tpu.platform import compute_dtype
     import jax.numpy as jnp
     import optax
 
@@ -206,9 +206,7 @@ def distill(cfg: Optional[DistillConfig] = None) -> Dict[str, object]:
             n_layers=cfg.layers,
             max_len=cfg.max_len,
             n_experts=cfg.n_experts,
-            dtype=jnp.bfloat16
-            if jax.default_backend() == "tpu"
-            else jnp.float32,
+            dtype=compute_dtype(),
             head_type="interaction",
         )
         init_dir = resolve_init_from(cfg.init_from)
@@ -223,9 +221,7 @@ def distill(cfg: Optional[DistillConfig] = None) -> Dict[str, object]:
             n_heads=cfg.heads,
             n_layers=cfg.layers,
             max_len=cfg.max_len,
-            dtype=jnp.bfloat16
-            if jax.default_backend() == "tpu"
-            else jnp.float32,
+            dtype=compute_dtype(),
         )
         params = init_params(jax.random.PRNGKey(cfg.seed), ce_cfg)
     optimizer = optax.adam(cfg.lr)
@@ -306,8 +302,7 @@ def main(argv=None) -> None:
     p.add_argument(
         "--init-from", default=None,
         help="warm-start the STUDENT tower from this bi-encoder dir "
-        "(interaction head; required for convergence at scale — "
-        "PERFORMANCE.md r3/r4)",
+        "(interaction head; required for convergence at scale)",
     )
     args = p.parse_args(argv)
     out, params, ce_cfg = distill(

@@ -54,6 +54,7 @@ class RecallEvalConfig:
 def train_bi_encoder(cfg: RecallEvalConfig, pairs: List[Tuple[str, str]]):
     """InfoNCE training loop; returns a TrainedEmbedder."""
     import jax
+    from qrag_tpu.platform import compute_dtype
     import jax.numpy as jnp
     import optax
 
@@ -72,9 +73,7 @@ def train_bi_encoder(cfg: RecallEvalConfig, pairs: List[Tuple[str, str]]):
             n_heads=cfg.heads,
             n_layers=cfg.layers,
             max_len=cfg.max_len,
-            dtype=jnp.bfloat16
-            if jax.default_backend() == "tpu"
-            else jnp.float32,
+            dtype=compute_dtype(),
         ),
         out_dim=cfg.out_dim,
     )

@@ -102,7 +102,7 @@ class RerankEvalConfig:
     # cross-attention advantage — the standard init-cross-encoders-
     # from-dual-encoders recipe.  None = train from scratch (a tiny
     # byte transformer needs far more steps that way; a from-scratch
-    # CPU run was flat at ln(Q) after 1500 steps — PERFORMANCE.md r3).
+    # CPU run was flat at ln(Q) after 1500 steps).
     init_from: Optional[str] = "artifacts/bi_encoder"
     # Distillation as an auxiliary REGULARIZER on the relevance
     # fine-tune (the round-4 finding: pure distillation never beats
@@ -147,6 +147,7 @@ class RerankEvalConfig:
 
 def _make_cfg(cfg: RerankEvalConfig):
     import jax
+    from qrag_tpu.platform import compute_dtype
     import jax.numpy as jnp
 
     from qrag_tpu.models.cross_encoder import CrossEncoderConfig
@@ -157,7 +158,7 @@ def _make_cfg(cfg: RerankEvalConfig):
         n_layers=cfg.layers,
         max_len=cfg.max_len,
         n_experts=cfg.n_experts,
-        dtype=jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32,
+        dtype=compute_dtype(),
         head_type="interaction",
     )
 

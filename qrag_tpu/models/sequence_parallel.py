@@ -9,7 +9,7 @@ of the cross-encoder over the mesh "model" axis via shard_map:
   * embeddings, layernorms, FFN/MoE: pointwise over tokens — stay
     sharded, zero communication;
   * attention: Q stays local to the shard's tokens; K/V are computed
-    locally then ``all_gather``'d over ICI (one collective per layer),
+    locally then ``all_gather``'d over the mesh (one collective per layer),
     so every shard attends over the full sequence;
   * CLS pooling: the logit is computed from the gathered final hidden
     states (CLS lives on shard 0).
@@ -46,7 +46,7 @@ def _sp_attention(p, x_local, mask_local, n_heads):
     b, tl, d = x_local.shape
     qkv = _linear(p["qkv"], x_local)  # (b, tl, 3d)
     q, k_local, v_local = jnp.split(qkv, 3, axis=-1)
-    # one ICI collective per layer: token-axis gather of K, V, mask
+    # one collective per layer: token-axis gather of K, V, mask
     k = jax.lax.all_gather(k_local, MODEL_AXIS, axis=1, tiled=True)  # (b, T, d)
     v = jax.lax.all_gather(v_local, MODEL_AXIS, axis=1, tiled=True)
     mask = jax.lax.all_gather(mask_local, MODEL_AXIS, axis=1, tiled=True)

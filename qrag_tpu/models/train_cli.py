@@ -73,6 +73,7 @@ def main(argv=None) -> None:
     enable_compilation_cache()
 
     import jax
+    from qrag_tpu.platform import compute_dtype
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -91,7 +92,7 @@ def main(argv=None) -> None:
         n_experts=args.experts,
         max_len=args.max_len,
         remat=args.remat,
-        dtype=jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32,
+        dtype=compute_dtype(),
     )
     # model-axis size must divide the sharded param dims (experts,
     # attention heads / FFN hidden); put the rest on "data"

@@ -7,7 +7,7 @@
 // append-only vector store with a binary manifest header, plus an exact
 // L2/IP scan + top-k heap used as (a) the CPU oracle for kernel parity
 // tests and (b) the retrieval fallback where no accelerator exists.
-// The TPU compute path (Pallas/XLA) remains the production scan; this
+// The device compute path (XLA / Pallas) remains the production scan; this
 // file is the runtime/IO layer around it.
 //
 // File layout (little-endian):

@@ -1,13 +1,11 @@
 """Provably-exact top-k via norm-bounded window pruning.
 
-The round-3 answer to the north star's literal metric ("exact top-10"):
-an on-device, jit-compatible exact top-k whose cost is ONE windowed
+An on-device, jit-compatible exact top-k whose cost is ONE windowed
 scan pass plus small targeted gathers — no second full pass over the
 (B, N) goodness (``scan_topk_verified_jit``'s certificate is a second
-4 GB pass at 1M x 768 / B=1024) and no full sort (``lax.top_k`` over
-1M columns is ~75x the matmul; docs/PERFORMANCE.md).
+pass over 4 GB at 1M x 768 / B=1024) and no full sort over N columns.
 
-How it stays exact — bound-and-prune (the TPU-shaped analogue of a
+How it stays exact — bound-and-prune (the accelerator-shaped analogue of a
 branch-and-bound pruned scan; the reference outsourced its whole scan
 to faiss-cpu, ``mcp/server/tools/store_in_faiss.py:105``):
 
@@ -36,16 +34,15 @@ to faiss-cpu, ``mcp/server/tools/store_in_faiss.py:105``):
      budgets).
   5. A certificate failure first ESCALATES: the same (already
      computed) planes are re-certified at a 4x candidate budget — a
-     bigger gather and selection (~few ms), not a new scan.  Only if
+     bigger gather and selection, not a new scan.  Only if
      the escalated certificates fail too does the op fall back
      (``lax.cond``) to the chunked exact full sort — exactness is
      unconditional, the fast path just stops applying.  Escalation is
-     what makes a lean default budget safe on tie-heavy corpora
-     (C=16: 12.57 vs 13.97 ms/batch at 1M x 768 — the r4 lab sweep in
-     docs/PERFORMANCE.md; the bf16 band is mean 10.4 / max 15
+     what makes a lean default budget safe on tie-heavy corpora (at
+     1M x 768 the narrow-regime band is mean 10.4 / max 15
      windows/query, so C=16 is one escalation-free notch above it): a
-     duplicate-row corpus that needs C > 16 pays ~2 ms once, not the
-     ~70 ms sort.
+     duplicate-row corpus that needs C > 16 pays one bigger gather,
+     not the full sort.
 
 Result contract: the EXACT top-k (values, indices, ties broken by
 lower global index — lax.top_k parity) of the refine-domain scoring
@@ -69,7 +66,9 @@ from qrag_tpu.ops.window_scan import (
     WINDOW,
     _float_from_key,
     _float_sort_key,
+    f32_precision,
     make_lane_rank,
+    widen_f32,
 )
 
 # worst-case relative f32 accumulation-order drift between two
@@ -82,7 +81,7 @@ _EPS_ACC = 2.4e-4
 # near-boundary rows escape the certificates).
 _BF16_HALF_ULP = 2.0 ** -8
 _SAFETY = 1.25
-_I32_MIN = jnp.int32(-(2 ** 31))
+_I32_MIN = np.int32(-(2 ** 31))  # a NumPy scalar: a literal, not a captured array
 
 
 def window_maxnorms(corpus_sqnorms: np.ndarray) -> np.ndarray:
@@ -175,6 +174,7 @@ def packed_window_scan_top2(
         corpus,
         dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
+        precision=f32_precision(queries.dtype),
     )
     if alpha != 1.0:
         g = g * alpha
@@ -212,6 +212,7 @@ def packed_window_scan_top3(
         corpus,
         dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
+        precision=f32_precision(queries.dtype),
     )
     if alpha != 1.0:
         g = g * alpha
@@ -266,10 +267,13 @@ def _exact_scores(
     metric: str,
 ) -> jnp.ndarray:
     """The refine-domain scoring function (matches
-    ``quantize.refine_candidates``): f32 einsum + l2 identity."""
+    ``quantize.refine_candidates``): f32 einsum + l2 identity, at
+    HIGHEST precision — ``margin_coeff`` assumes true f32 arithmetic,
+    and a DEFAULT f32 product may run in TF32 on a GPU."""
     dots = jnp.einsum(
         "bd,b...d->b...", q32, rows.astype(jnp.float32),
         preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )
     if metric == "l2":
         return 2.0 * dots - qsq.reshape(qsq.shape[0], *([1] * (dots.ndim - 1))) - xsq
@@ -298,7 +302,10 @@ def bounded_exact_topk(
     # narrow (16, 32) / mid (48, 32) / wide (96, 96))
     candidates: Optional[int] = None,
     patch_queries: Optional[int] = None,
-    backend: str = "xla",  # "xla" | "pallas"
+    # "xla" (the twins above) | "triton" (ops/pallas/fused_scan.py);
+    # callers take it from qrag_tpu.platform.scan_route.  interpret
+    # runs the kernel on the CPU (tests only).
+    backend: str = "xla",
     interpret: bool = False,
     # large-k design (three bound planes + per-query runner-up row
     # patches): None = auto (k > _LARGE_K_AUTO).  At rerank-width k the
@@ -391,29 +398,24 @@ def _auto_budgets(
     dtype property, so the choice is jit-free).  The two budgets must
     clear the certificate band TOGETHER: cert_b's flagged-query budget
     F binds at the batch level, so raising C alone leaves every batch
-    escalating while making tier-2's 4C gather pricier (measured:
-    wide C=96/F=32 is strictly slower than C=48/F=32).
+    escalating while making tier-2's 4C gather pricier.
 
-    Three regimes (1M x 768 / k=10 / B=1024 census + timed sweeps,
-    docs/PERFORMANCE.md round-4 final — margin_coeff values at d=768):
+    Three regimes (band census of random unit corpora at 1M x 768,
+    k=10, B=1024 — corpus statistics of the margin formulas, not
+    device timings; margin_coeff values at d=768):
 
       narrow  query == scan == refine dtype (coeff 3e-4: f32
               accumulation drift only).  Band mean 10.4 / max 15
-              windows/query, ~8 flagged queries/batch: the lean
-              (16, 32) wins (12.57 vs 13.97 ms/batch).
+              windows/query, ~8 flagged queries/batch: (16, 32).
       mid     f32 queries against a bf16 store that is also the
               refine domain (coeff 5.2e-3: one bf16 rounding term).
-              Band mean 19 / max 38, ~25 flagged queries/batch;
-              (48, 32) certifies tier-1 at 15.63 ms (65.5k QPS) —
-              C=40 is 0.6 ms faster but leaves 2 windows of cert_a
-              headroom vs measured max.
+              Band mean 19 / max 38, ~25 flagged queries/batch:
+              (48, 32), 10 windows of cert_a headroom over the max.
       wide    f32 queries, bf16 scan, f32 refine store (coeff 1.0e-2:
               both rounding terms).  Band mean 34 / max 88, ~77
               flagged queries/batch — (48, 32) escalates EVERY batch
-              (34.1 ms) and raising C alone makes it WORSE (C=96/F=32
-              is 50.9 ms: tier-2's 4C gather scales with C while
-              cert_b still fails on F).  (96, 96) certifies tier-1 at
-              20.88 ms (49k QPS).
+              and raising C alone does not help (cert_b still fails
+              on F): (96, 96).
 
     Values outside the census's corpus-statistics regime self-correct
     through the escalation tier (4C, 4F) before any full sort."""
@@ -446,9 +448,9 @@ def window_bounds_bf16(
     """Float-scan front-end: top-2 packed window scan + rigorous
     rounding margins.  Returns (q32, qsq, ub, ub2, cand_live, lane1)
     — the certificate inputs of ``_certify_escalate``.  Exposed so
-    measurement tooling (the band census, ``scripts/r5_lab.py``) uses
-    the PRODUCTION bound formulas instead of a hand-copied replica
-    that could silently desync.
+    measurement tooling (the band census) uses the PRODUCTION bound
+    formulas instead of a hand-copied replica that could silently
+    desync.
 
     ``top3=True`` (the large-k design) appends (ub3, lane2, live2):
     the third-row bound plane, the runner-up lane per window, and
@@ -457,7 +459,9 @@ def window_bounds_bf16(
     b, d = queries.shape
     n = corpus_scan.shape[0]
 
-    q32 = queries.astype(jnp.float32)
+    # the scan reads the rounded query; the refine and the margins
+    # must see the same values (``widen_f32``)
+    q32 = widen_f32(queries)
     qsq = jnp.sum(q32 * q32, axis=-1, keepdims=True)
     qnorm = jnp.sqrt(qsq)
 
@@ -472,39 +476,17 @@ def window_bounds_bf16(
 
     q_scan = queries.astype(corpus_scan.dtype)
     pk3 = None
-    if backend == "pallas" and n % 1024 == 0:
-        from qrag_tpu.ops.pallas.fused_scan import (
-            pallas_packed_window_scan_top2_t,
-        )
+    if backend == "triton":
+        from qrag_tpu.ops.pallas.fused_scan import packed_window_scan_kernel
 
-        interp = interpret or jax.default_backend() != "tpu"
-        # transposed kernel: window max on sublanes, (NW, B) output
-        # blocks, fold = ONE clean 2D transpose — measured 10.8 vs
-        # 14.2 ms/batch1024 at 1M x 768 (r4 lab; kills the two
-        # nw-lane-minor plane relayouts of VERDICT r4 item 1)
-        pks = pallas_packed_window_scan_top2_t(
-            q_scan, corpus_scan,
-            bn=2048 if n % 2048 == 0 else 1024,
-            row_add=row_add, col_add=col_add, alpha=alpha,
-            interpret=interp,
-            planes=3 if top3 else 2,
+        pks = packed_window_scan_kernel(
+            q_scan, corpus_scan, row_add=row_add, col_add=col_add,
+            alpha=alpha, planes=3 if top3 else 2, interpret=interpret,
         )
         pk1, pk2 = pks[0], pks[1]
         if top3:
             pk3 = pks[2]
-    elif backend == "pallas" and not top3:
-        from qrag_tpu.ops.pallas.fused_scan import (
-            pallas_packed_window_scan_top2,
-        )
-
-        interp = interpret or jax.default_backend() != "tpu"
-        pk1, pk2 = pallas_packed_window_scan_top2(
-            q_scan, corpus_scan,
-            row_add=row_add, col_add=col_add, alpha=alpha,
-            interpret=interp,
-        )
     elif top3:
-        # the straight Mosaic kernel has no third plane; XLA twin
         pk1, pk2, pk3 = packed_window_scan_top3(
             q_scan, corpus_scan, lane_rank,
             row_add=row_add, col_add=col_add, alpha=alpha,
@@ -586,8 +568,7 @@ def _certify_and_refine(
     k the top-k rows birthday-collide into shared windows (expected
     flagged queries ~ B*k^2/2NW — ~480/batch1024 at k=100), which
     swamps any whole-window patch budget F and forced the full sort
-    every batch (measured 380 ms vs 33 ms; docs/PERFORMANCE.md
-    round-4 final).  Triple collisions (~B*k^3/6NW^2, a handful per
+    every batch.  Triple collisions (~B*k^3/6NW^2, a handful per
     batch) still ride the window-patch layer."""
     b, d = q32.shape
     nw = ub.shape[1]
@@ -602,8 +583,7 @@ def _certify_and_refine(
     # (one fused plane-wide where), so liveness and cert_a
     # qualification both read off the SELECTION VALUES — this removes
     # two (B, NW)-plane take_along_axis gathers (cand_live + the
-    # qualifies plane) that the r5 profiler trace priced at ~0.17 ms
-    # each per batch (docs/PERFORMANCE.md round-5 decomposition).
+    # qualifies plane).
     ub = jnp.where(cand_live, ub, -jnp.inf)
     if nw > 4096:
         sel_vals, wsel = jax.lax.approx_max_k(ub, C, recall_target=0.999)
@@ -786,36 +766,86 @@ def _certify_and_refine(
 
 
 def _exact_full_sort(
-    q32: jnp.ndarray,
+    q: jnp.ndarray,
     corpus_f: jnp.ndarray,
     corpus_sqnorms: jnp.ndarray,
     k: int,
     metric: str,
     valid_rows: Optional[jnp.ndarray],
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """The unconditional-exactness backstop: full top-k sort, chunked
-    over queries so a rarely-taken cond branch reserves ~(chunk, N)
-    buffers instead of (B, N) — it must not pressure HBM for the fast
-    path."""
-    b, d = q32.shape
+    """The exact top-k over every row (``lax.top_k`` parity, ties to the
+    lower index), chunked over queries, and over corpus rows when the
+    scores of all rows do not fit ``_FULL_SORT_BYTES``: it never holds a
+    (B, N) score matrix, nor an f32 copy of a bf16 store (61 GB for a
+    25M-row bf16 shard).
+
+    The bounded ops' unconditional-exactness backstop and the sharded
+    exact mode's per-shard sort.  Rows are scored in the promoted dtype
+    of ``q`` and the store: an f32 query scores in the refine domain of
+    the fast path's f32 einsum (HIGHEST, inside ``_goodness``)."""
+    b, d = q.shape
+    n = corpus_f.shape[0]
     from qrag_tpu.ops.topk import _goodness
 
     chunk = min(b, 128)
     pad = (-b) % chunk
-    qq = jnp.pad(q32, ((0, pad), (0, 0))) if pad else q32
+    qq = jnp.pad(q, ((0, pad), (0, 0))) if pad else q
+    score_dtype = jnp.result_type(q.dtype, corpus_f.dtype)
+    rows = _full_sort_rows(chunk, n, d, corpus_f.dtype, score_dtype)
+    valid = jnp.ones((n,), bool) if valid_rows is None else valid_rows
+    starts = jnp.arange(0, n, rows, dtype=jnp.int32)
 
     def one(qc):
-        # HIGHEST: the fallback must score in the same refine domain
-        # as the fast path's f32 einsum — on TPU the default f32 dot
-        # is a reduced-precision MXU pass ~2.6e-4 off (r5 measurement)
-        g = _goodness(
-            qc, corpus_f, metric, corpus_sqnorms, valid_rows,
-            precision=jax.lax.Precision.HIGHEST,
+        def step(best, start):
+            # the last step's slice is clamped to end at n: rows before
+            # ``start`` were scored by the previous step and are masked
+            at = jnp.minimum(start, n - rows)
+            idx = at + jnp.arange(rows, dtype=jnp.int32)
+            x = jax.lax.dynamic_slice(corpus_f, (at, 0), (rows, d))
+            g = _goodness(
+                qc, x.astype(score_dtype), metric,
+                jax.lax.dynamic_slice(corpus_sqnorms, (at,), (rows,)),
+                jax.lax.dynamic_slice(valid, (at,), (rows,)) & (idx >= start),
+            )
+            v, i = jax.lax.top_k(g, min(k, rows))
+            merged = topk_tiebreak(
+                jnp.concatenate([best[0], v], axis=1),
+                jnp.concatenate([best[1], idx[i]], axis=1),
+                k,
+            )
+            return merged, None
+
+        # sentinel ids >= n lose every tie to a real row, as the
+        # lowest-index rule of lax.top_k over all rows requires; at
+        # 2^30 they stay out of range when a shard offsets its ids
+        init = (
+            jnp.full((chunk, k), -jnp.inf, jnp.float32),
+            jnp.broadcast_to(
+                (1 << 30) + jnp.arange(k, dtype=jnp.int32), (chunk, k)
+            ),
         )
-        return tuple(jax.lax.top_k(g, k))
+        out, _ = jax.lax.scan(step, init, starts)
+        return out
 
     vs, is_ = jax.lax.map(one, qq.reshape(-1, chunk, d))
     return vs.reshape(-1, k)[:b], is_.reshape(-1, k)[:b]
+
+
+# bytes that one step of the exact sort may hold: its (chunk, rows)
+# scores and, when the rows are sliced, the slice in the scoring dtype
+_FULL_SORT_BYTES = 1 << 30
+
+
+def _full_sort_rows(chunk: int, n: int, d: int, store_dtype, score_dtype) -> int:
+    """Corpus rows per step of ``_exact_full_sort``: every row at once
+    when the scores (and an f32 copy of a narrower store) fit the
+    budget — one product over all rows is the fastest form on one card
+    — else the largest slice that fits."""
+    width = jnp.dtype(score_dtype).itemsize * d
+    whole = 4 * chunk + (width if store_dtype != score_dtype else 0)
+    if n * whole <= _FULL_SORT_BYTES:
+        return n
+    return max(1, min(n, _FULL_SORT_BYTES // (4 * chunk + width)))
 
 
 def _certify_escalate(
@@ -845,7 +875,7 @@ def _certify_escalate(
     # the per-query patch-window cap only widens in large-k mode (the
     # small-k headline path keeps the tuned 2-argmax selection at both
     # tiers); 4x covers the dense-regime band pileup measured at
-    # k ~ NW/5 (docs/PERFORMANCE.md "Large-k")
+    # k ~ NW/5 (max 9 flagged windows per query at k=100, NW=512)
     P2 = patch_windows if ub3 is None else min(4 * patch_windows, nw)
     if C2 <= C and (
         ub3 is None or (R2 <= runner_budget and P2 <= patch_windows)
@@ -896,7 +926,7 @@ def packed_window_scan_top2_int(
     lane_rank: jnp.ndarray,  # (1, N)
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """XLA reference int top-2 window scan: packed keys carry the RAW
-    int32 dots (exact — the MXU's int8 x int8 -> int32 accumulation
+    int32 dots (exact — the int8 x int8 -> int32 accumulation
     has no rounding), shifted by 7 for the lane bits.  Twin of the
     int-domain arm of ``fused_scan._packed_top2_t_kernel``."""
     b = q8.shape[0]
@@ -920,7 +950,7 @@ def packed_window_scan_top2_int(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "k", "metric", "candidates", "patch_queries", "backend", "interpret"
+        "k", "metric", "candidates", "patch_queries",
     ),
 )
 def bounded_exact_topk_int8(
@@ -938,14 +968,12 @@ def bounded_exact_topk_int8(
     valid_rows: Optional[jnp.ndarray] = None,  # (N,) bool
     candidates: int = 48,
     patch_queries: int = 32,
-    backend: str = "xla",  # "xla" | "pallas"
-    interpret: bool = False,
 ) -> Tuple[
     jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray
 ]:
-    """Provably-exact top-k with the SCAN at the int8 MXU rate
-    (VERDICT r4 item 2: extend the margin derivation to int8
-    block-quantization error).
+    """Provably-exact top-k with the SCAN in int8 arithmetic
+    (the margin derivation extended to int8 block-quantization
+    error).
 
     The scan packs EXACT int32 dots of per-window-quantized codes, so
     unlike the bf16 mode there is no scan rounding at all — the margin
@@ -982,7 +1010,7 @@ def bounded_exact_topk_int8(
     q32, qsq, ub, ub2, cand_live, lane1, clip_fail = window_bounds_int8(
         queries, corpus_q8, window_scales, corpus_f, corpus_sqnorms,
         maxnorms, minsqnorms, window_resid, lane_rank, metric=metric,
-        valid_rows=valid_rows, backend=backend, interpret=interpret,
+        valid_rows=valid_rows,
     )
     return _certify_escalate(
         q32, qsq, corpus_f, corpus_sqnorms, k, metric, valid_rows, C, F,
@@ -1006,8 +1034,6 @@ def window_bounds_int8(
     lane_rank: jnp.ndarray,  # (1, N)
     metric: str = "l2",
     valid_rows=None,
-    backend: str = "xla",
-    interpret: bool = False,
 ):
     """int8-scan front-end: exact int32 window dots + quantization-
     residual margins.  Returns (q32, qsq, ub, ub2, cand_live, lane1,
@@ -1029,18 +1055,7 @@ def window_bounds_int8(
         jnp.round(q32 / t[:, None]), -127, 127
     ).astype(jnp.int8)
 
-    if backend == "pallas" and n % 1024 == 0:
-        from qrag_tpu.ops.pallas.fused_scan import (
-            pallas_packed_window_scan_top2_t,
-        )
-
-        pk1, pk2 = pallas_packed_window_scan_top2_t(
-            q8, corpus_q8,
-            bn=2048 if n % 2048 == 0 else 1024,
-            interpret=interpret or jax.default_backend() != "tpu",
-        )
-    else:
-        pk1, pk2 = packed_window_scan_top2_int(q8, corpus_q8, lane_rank)
+    pk1, pk2 = packed_window_scan_top2_int(q8, corpus_q8, lane_rank)
 
     dot1 = pk1 >> 7  # EXACT int dot of each window's argmax row
     lane1 = WINDOW - 1 - (pk1 & jnp.int32(WINDOW - 1))

@@ -9,9 +9,9 @@ HBM-bandwidth-bound instead — reading a 1M x 768 bf16 corpus is
 pruning the READS, not the selection.  (The round-4 int8 pre-filter
 census killed read-pruning for B=1024: the batch-union of surviving
 regions is the whole corpus.  At B <= ~32 the union is small — that
-regime flip is what this op serves.  docs/PERFORMANCE.md.)
+regime flip is what this op serves.)
 
-Design — the FAISS-IVF shape rebuilt TPU-first, but EXACT (the
+Design — the FAISS-IVF shape rebuilt for an accelerator, but EXACT (the
 reference family's ``faiss.IndexFlatL2``, ``store_in_faiss.py:105``,
 is exact; classical IVF trades exactness for speed — this op refuses
 that trade):
@@ -24,7 +24,7 @@ that trade):
   Per group: centroid, covering radius max |x - c|, max row norm.
 
   search (``cluster_pruned_topk``): score the B queries against the
-  G centroids (a tiny MXU matmul), convert to rigorous per-group
+  G centroids (a tiny matmul), convert to rigorous per-group
   goodness upper bounds (triangle inequality + f32 evaluation-drift
   margins), exactly score every row of the top-S groups (S CONTIGUOUS
   ``dynamic_slice`` reads per query — no random row gather), and
@@ -123,7 +123,7 @@ def _kmeans_assign(
     chunk: int,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Lloyd's k-means on device, chunked over rows (the assignment
-    matmul and the one-hot accumulation both ride the MXU).  Returns
+    matmul and the one-hot accumulation are both matmuls).  Returns
     (centroids (G0, d), assignment (N,) int32).  Build-time only —
     clustering QUALITY affects pruning rate, never exactness."""
     n, d = x32.shape
@@ -411,7 +411,9 @@ def _group_upper_bounds(
     (``_exact_scores`` is a fresh f32 einsum)."""
     qn = jnp.sqrt(qsq)  # (B, 1)
     cn = jnp.sqrt(cg.csq)[None, :]  # (1, G)
-    qc = q32 @ cg.centroids.T  # (B, G) f32
+    qc = jnp.dot(
+        q32, cg.centroids.T, precision=jax.lax.Precision.HIGHEST
+    )  # (B, G) f32; the e_qc margin assumes true f32 arithmetic
     coeff = margin_coeff(jnp.float32, jnp.float32, jnp.float32, d)
     acc = _acc_rel(d)
     e_qc = coeff * qn * cn  # |fl(q.c) - q.c| bound (safety included)
@@ -536,12 +538,9 @@ def _fallback_full(
         xb, sb, ob, vb = inp
         # refine-domain scoring of rows SHARED across queries (the
         # same f32 math as _exact_scores, without its per-query row
-        # batching).  HIGHEST precision: on TPU the default f32 dot
-        # is a reduced-precision MXU pass ~2.6e-4 off true f32 while
-        # the fast path's einsum is near-exact — without the pin the
-        # fallback's values drift visibly from the fast path's
-        # (r5 measurement; the documented cross-path tie caveat was
-        # sized for f32-order noise ~1e-7, not 2.6e-4)
+        # batching).  HIGHEST precision: a DEFAULT f32 product may
+        # run in TF32 on a GPU (~1e-3 relative) while the documented
+        # cross-path tie caveat is sized for f32-order noise ~1e-7
         dots = jnp.dot(
             q32, xb.astype(jnp.float32).T,
             preferred_element_type=jnp.float32,

@@ -1,10 +1,9 @@
-"""Own-domain int8 exact top-k: the int8 MXU scan with a ZERO band.
+"""Own-domain int8 exact top-k: the int8 scan with a ZERO band.
 
 The f32-contract int8 bounded mode (``bounded_topk.bounded_exact_
 topk_int8``) is refuted as a headline path: quantization residuals put
-a ~0.5-sigma band around every plane value, the certificates flood,
-and the pipeline loses to bf16 (docs/PERFORMANCE.md "int8-exact
-settled").  This op takes the documented remaining axis — a CONTRACT
+a ~0.5-sigma band around every plane value and the certificates
+flood.  This op takes the documented remaining axis — a CONTRACT
 change, not a tighter bound.  The corpus IS the int8 codes (plus one
 f32 scale per 128-row window), the query is symmetrically int8-rounded
 once at the edge, and the scoring function is *defined* as
@@ -12,14 +11,13 @@ once at the edge, and the scoring function is *defined* as
     score(q, r) = fl32( (t * s_w) * f32(<q8, x8_r>_int32) )      (ip)
     goodness(q, r) = (2*score - qsq_deq) - xsq_deq_r             (l2)
 
-i.e. the EXACT int32 MXU accumulation of the rounded operands, scaled
+i.e. the EXACT int32 accumulation of the rounded operands, scaled
 once in f32 (the dot is bit-exact; the f32 cast and single multiply
 are correctly rounded and monotone in the dot).  This is the contract
 of fp16/int8 GPU-FAISS indexes one quantization step coarser — the
 reference's own store would hold these codes (it outsources scanning
 to faiss-cpu, ``mcp/server/tools/store_in_faiss.py:105``); here the
-scan runs at the int8 MXU rate (~1.5x the bf16 floor, measured
-6.99 ms/batch1024 at 1M x 768 — docs/PERFORMANCE.md).
+scan runs in int8 arithmetic (device time: not measured on a GPU yet).
 
 Why the band is (nearly) zero: the packed plane keys carry the RAW
 int32 dots — no rounding — and the refinement computes the SAME
@@ -296,7 +294,7 @@ def _refine_int8_domain(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "k", "metric", "candidates", "patch_queries", "backend", "interpret"
+        "k", "metric", "candidates", "patch_queries",
     ),
 )
 def exact_topk_int8_domain(
@@ -310,8 +308,6 @@ def exact_topk_int8_domain(
     valid_rows: Optional[jnp.ndarray] = None,  # (N,) bool
     candidates: int = 16,
     patch_queries: int = 32,
-    backend: str = "xla",  # "xla" | "pallas"
-    interpret: bool = False,
 ) -> Tuple[
     jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray
 ]:
@@ -336,18 +332,7 @@ def exact_topk_int8_domain(
         :, None
     ]  # (B, 1)
 
-    if backend == "pallas" and n % 1024 == 0:
-        from qrag_tpu.ops.pallas.fused_scan import (
-            pallas_packed_window_scan_top2_t,
-        )
-
-        pk1, pk2 = pallas_packed_window_scan_top2_t(
-            q8, corpus_q8,
-            bn=2048 if n % 2048 == 0 else 1024,
-            interpret=interpret or jax.default_backend() != "tpu",
-        )
-    else:
-        pk1, pk2 = packed_window_scan_top2_int(q8, corpus_q8, lane_rank)
+    pk1, pk2 = packed_window_scan_top2_int(q8, corpus_q8, lane_rank)
 
     dot1 = pk1 >> 7  # EXACT int dot of each window's argmax row
     lane1 = WINDOW - 1 - (pk1 & jnp.int32(WINDOW - 1))

@@ -1,33 +1,27 @@
-"""Pallas packed window-scan kernel (Mosaic matmul + fused epilogue).
+"""Packed window scan as one Pallas kernel through Triton (Hopper).
 
-The production form of the round-2 scan redesign (the shared
-selection/refinement glue and the packing contract live in
-``qrag_tpu.ops.window_scan``; this file is the TPU kernel).  The
-reference outsourced its flat scan to faiss-cpu's C++
-(``mcp/server/tools/store_in_faiss.py:105``); this is the TPU-native
-hot path for the cases where the (B, N) score matrix must never exist:
+The scan pass of ``ops.bounded_topk`` and ``ops.window_scan`` computes
+``Q @ X^T``, turns every score into an order-preserving int32 key with
+the lane in its low 7 bits, and keeps only the top 1, 2 or 3 keys of
+each 128-row window.  The XLA twins (``bounded_topk.
+packed_window_scan_top2`` / ``_top3``, ``window_scan.
+packed_window_scan``) hand the product to a library GEMM and run the
+epilogue as a separate fusion, so the (B, N) f32 score matrix is
+written to device memory and read back.  Here the epilogue runs on the
+accumulator in registers and only the (B, N/128) planes are written:
 
-  per (bm, bn) grid step (stateless — Mosaic double-buffers at full
-  matmul speed; the round-1 running-buffer kernel's cross-tile carry
-  serialized the pipeline and ran 7x slower):
+  per (bm queries, windows x 128 rows) block:
+    acc_w  = sum over d chunks of  Q[:, c] @ X_w[:, c]^T   (bf16 in, f32 acc)
+    g      = (alpha * acc_w + row_add) + col_add           (twin's order)
+    key    = sign-folded bitcast(g) & ~127
+    packed = key | (127 - lane)              ties -> LOWER row index wins
+    plane p = p-th largest packed key of the window  (p = 1..planes)
 
-    dots   = Q_block @ X_tile^T      (MXU; int8 -> int32 or bf16 -> f32)
-    key    = order-preserving int32 of the score
-    packed = (key & ~127) | (127 - lane)     ties -> LOWER index wins
-    out    = max over each 128-lane window   (strided slices: Mosaic
-             lane-dim reshapes relayout ~+30%, slices are free)
+Blocks are independent; the query axis is the fastest grid axis, so
+the blocks that share one corpus tile run together and the tile is
+read from device memory once and from L2 after that.
 
-Output: (B, N/128) packed int32 planes — 128x smaller than the score
-matrix, decoded by ``window_scan.unpack_stats``.
-
-Honest v5e numbers (1M x 768 / B=1024, full-column dependence): int8
-scan 8.6 ms raw; the XLA approx pipeline (10.5-12.5 ms depending on
-chip session) remains the default because it needs no candidate-row
-gather — see docs/PERFORMANCE.md for the full decomposition.
-
-On non-TPU backends the kernel runs in interpreter mode so tests
-exercise the identical code path (bit-identical to the XLA reference
-implementation — tested).
+``interpret=True`` runs the same kernel on the CPU (tests only).
 """
 
 from __future__ import annotations
@@ -37,526 +31,129 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 WINDOW = 128
-_INT_CLAMP = (1 << 23) - 1  # |key| <= 2^23 so << 7 never overflows
-# plain Python int: a jnp scalar here would be a captured constant,
+# Tiling, from a sweep at B=1024 x 1M x 768 on an H100 (400 W limit):
+# 128 queries x 2 windows per block with 8 warps and a 3-stage
+# pipeline over 64-wide d chunks ran the two-plane scan in 4.40 ms
+# against 5.18 ms for 64 x 2 / 4 warps; a 128-wide d chunk no longer
+# fits 3 stages in shared memory.  An odd window count takes one
+# window per block (and 4 warps).
+_BM = 128
+_BK = 64
+_WINDOWS = 2
+_STAGES = 3
+# plain Python ints: a jnp scalar here would be a captured constant,
 # which pallas_call kernels reject
 _I32_MIN_P = -(2 ** 31)
+_TRUNC_MASK = -WINDOW  # ~127: clears the lane bits
 
 
-def _fold_planes(out, b: int, nw_total: int):
-    """(n_tiles, b, nw) kernel output -> (b, NW) plane, BARRIERED.
-
-    The tile-leading layout has a 4-lane minor dim; without the
-    barrier XLA fuses every downstream plane consumer (unpack, scale
-    rejoin, bounds/margins/cert arithmetic) into that layout at 4/128
-    lane utilization — a measured ~15 ms/batch tax at 1M x 768
-    (docs/PERFORMANCE.md round-3 final)."""
-    return jax.lax.optimization_barrier(
-        jnp.transpose(out, (1, 0, 2)).reshape(b, nw_total)
-    )
-
-
-def _packed_kernel(
-    q_ref, ca_ref, x_ref, ra_ref, out_ref, *, bn: int, acc_dtype, alpha: float
+def _scan_kernel(
+    q_ref, ca_ref, x_ref, ra_ref, *plane_refs, alpha: float, bk: int,
+    windows: int,
 ):
-    """Matmul + packed (score, lane) window-argmax epilogue — the
-    Pallas twin of ``ops.window_scan.packed_window_scan``.
+    bm, d = q_ref.shape
 
-    Float domain keys ``alpha*dots + ca + ra`` (covers the exact -d^2
-    l2 goodness: alpha=2, ca=-|q|^2, ra=-|x|^2); the int domain packs
-    raw clamped dots (affine terms don't apply to int8 scans — per-
-    window scales rejoin at the plane level)."""
-    nw = bn // WINDOW
-    bm = q_ref.shape[0]
-    dots = jax.lax.dot_general(
-        q_ref[:],
-        x_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=acc_dtype,
+    def body(t, accs):
+        cols = pl.ds(pl.multiple_of(t * bk, bk), bk)
+        q = q_ref[:, cols]
+        return tuple(
+            acc + pl.dot(q, x_ref[pl.ds(w * WINDOW, WINDOW), cols],
+                         trans_b=True)
+            for w, acc in enumerate(accs)
+        )
+
+    accs = jax.lax.fori_loop(
+        0, d // bk, body,
+        tuple(jnp.zeros((bm, WINDOW), jnp.float32) for _ in range(windows)),
     )
-    if acc_dtype == jnp.int32:
-        key = jnp.clip(dots, -_INT_CLAMP, _INT_CLAMP) << 7
-    else:
-        g = dots.astype(jnp.float32)
-        if alpha != 1.0:
-            g = g * alpha
-        g = g + ca_ref[:] + ra_ref[:]
+    ca = ca_ref[...][:, None]  # (bm, 1)
+    lane_rank = (WINDOW - 1) - jax.lax.broadcasted_iota(
+        jnp.int32, (bm, WINDOW), 1
+    )
+    for w, acc in enumerate(accs):
+        ra = ra_ref[pl.ds(w * WINDOW, WINDOW)][None, :]  # (1, 128)
+        g = acc * alpha if alpha != 1.0 else acc
+        g = (g + ra) + ca
         u = jax.lax.bitcast_convert_type(g, jnp.int32)
-        mono = jnp.where(u < 0, jnp.int32(-(2 ** 31)) - u, u)
-        key = mono & ~jnp.int32(127)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (bm, bn), 1)
-    packed = key | (127 - (lane & 127))
-    parts = [
-        jnp.max(packed[:, w * WINDOW : (w + 1) * WINDOW], axis=1, keepdims=True)
-        for w in range(nw)
-    ]
-    out_ref[:] = jnp.concatenate(parts, axis=1)[None]
+        key = jnp.where(u < 0, _I32_MIN_P - u, u) & _TRUNC_MASK
+        packed = key | lane_rank
+        for p, ref in enumerate(plane_refs):
+            top = jnp.max(packed, axis=1)  # (bm,)
+            ref[w, :] = top
+            if p + 1 < len(plane_refs):
+                # packed keys are unique within a window (lane bits),
+                # so each mask removes exactly one row
+                packed = jnp.where(packed == top[:, None], _I32_MIN_P, packed)
+
+
+def _pick_bm(b: int, bm_max: int) -> int:
+    """Query block: the smallest power of two >= B up to ``bm_max``,
+    and at least 16 (the tensor-core product's minimum M)."""
+    return min(bm_max, max(16, 1 << max(0, (b - 1).bit_length())))
+
+
+def tiles(n: int, d: int) -> bool:
+    """Do these corpus shapes fit the kernel's tiling?"""
+    return n >= WINDOW and n % WINDOW == 0 and d >= _BK and d % _BK == 0
 
 
 @functools.partial(
-    jax.jit, static_argnames=("bm", "bn", "alpha", "interpret")
+    jax.jit, static_argnames=("alpha", "planes", "interpret")
 )
-def pallas_packed_window_scan(
-    queries: jnp.ndarray,  # (B, d) int8 or bf16/f32; B % bm == 0
-    corpus: jnp.ndarray,  # (N, d); N % bn == 0, d % 128 == 0
-    bm: int = 0,
-    bn: int = 512,
-    row_add=None,  # (1, N) f32 float-domain per-row add (-|x|^2 for l2)
-    col_add=None,  # (B, 1) f32 float-domain per-query add (-|q|^2)
-    alpha: float = 1.0,  # float-domain dots multiplier (2.0 for l2)
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """(B, N/128) packed int32 window stats (window_scan contract)."""
-    b, d = queries.shape
-    n = corpus.shape[0]
-    bm = bm or _pick_bm_packed(b)
-    if b % bm or n % bn or d % WINDOW:
-        raise ValueError(
-            f"shapes must tile: B={b}%{bm}, N={n}%{bn}, d={d}%{WINDOW}"
-        )
-    nw = bn // WINDOW
-    n_tiles = n // bn
-    acc_dtype = jnp.int32 if queries.dtype == jnp.int8 else jnp.float32
-    itemsize = 1 if queries.dtype == jnp.int8 else queries.dtype.itemsize
-    if row_add is None:
-        row_add = jnp.zeros((1, n), jnp.float32)
-    if col_add is None:
-        col_add = jnp.zeros((b, 1), jnp.float32)
-    out = pl.pallas_call(
-        functools.partial(
-            _packed_kernel, bn=bn, acc_dtype=acc_dtype, alpha=alpha
-        ),
-        grid=(b // bm, n_tiles),
-        in_specs=[
-            pl.BlockSpec((bm, d), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bm, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, d), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        # the tile axis leads (TPU block shapes must span the minor
-        # dim); the caller folds (n_tiles, B, nw) -> (B, NW)
-        out_specs=pl.BlockSpec(
-            (1, bm, nw), lambda i, j: (j, i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((n_tiles, b, nw), jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * n * d,
-            bytes_accessed=n * d * itemsize + b * d * itemsize
-            + b * (n // WINDOW) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(queries, col_add, corpus, row_add)
-    return _fold_planes(out, b, n // WINDOW)
-
-
-def _packed_top2_kernel(
-    q_ref, ca_ref, x_ref, ra_ref, pk1_ref, pk2_ref, *, bn: int, alpha: float
-):
-    """Matmul + per-window packed (argmax, runner-up) epilogue — the
-    scan pass of ``ops.bounded_topk`` (norm-bounded exact top-k).
-
-    Float domain only (int8 quantization bounds are too fat to prune
-    with — docs/PERFORMANCE.md round-3).  Both planes stay in the
-    packed int32 domain (value-truncated | lane): the consumer
-    recovers RIGOROUS value bounds via ``(key & ~127) + 128`` (the
-    next truncation step is a strict upper bound of the true score),
-    which keeps the epilogue to two integer window reductions — no
-    f32 value planes.  pk2 masks exactly one lane per window (packed
-    keys are unique), so a sub-2^-16 trunc-tie can surface the true
-    max in pk2 — sound: bounds, not identities, feed the certs."""
-    nw = bn // WINDOW
-    bm = q_ref.shape[0]
-    dots = jax.lax.dot_general(
-        q_ref[:],
-        x_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    g = dots.astype(jnp.float32)
-    if alpha != 1.0:
-        g = g * alpha
-    g = g + ca_ref[:] + ra_ref[:]
-    u = jax.lax.bitcast_convert_type(g, jnp.int32)
-    mono = jnp.where(u < 0, jnp.int32(-(2 ** 31)) - u, u)
-    key = mono & ~jnp.int32(127)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (bm, bn), 1)
-    packed = key | (127 - (lane & 127))
-    pk1_parts, pk2_parts = [], []
-    for w in range(nw):
-        ps = packed[:, w * WINDOW : (w + 1) * WINDOW]
-        pmax = jnp.max(ps, axis=1, keepdims=True)
-        pk1_parts.append(pmax)
-        pk2_parts.append(
-            jnp.max(
-                jnp.where(ps == pmax, _I32_MIN_P, ps), axis=1, keepdims=True
-            )
-        )
-    pk1_ref[:] = jnp.concatenate(pk1_parts, axis=1)[None]
-    pk2_ref[:] = jnp.concatenate(pk2_parts, axis=1)[None]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("bm", "bn", "alpha", "interpret")
-)
-def pallas_packed_window_scan_top2(
-    queries: jnp.ndarray,  # (B, d) bf16/f32; B % bm == 0
-    corpus: jnp.ndarray,  # (N, d); N % bn == 0, d % 128 == 0
-    bm: int = 0,
-    bn: int = 512,
+def packed_window_scan_kernel(
+    queries: jnp.ndarray,  # (B, d) bf16
+    corpus: jnp.ndarray,  # (N, d) bf16; N % 128 == 0, d % 64 == 0
     row_add=None,  # (1, N) f32 per-row add (-|x|^2 for l2, -inf masks)
     col_add=None,  # (B, 1) f32 per-query add (-|q|^2)
     alpha: float = 1.0,
-    interpret: bool = False,
-):
-    """(pk1 (B, NW) int32, pk2 (B, NW) int32) packed (value | lane)
-    window argmax + runner-up planes — the Mosaic twin of
-    ``bounded_topk.packed_window_scan_top2``."""
-    b0, d = queries.shape
-    n = corpus.shape[0]
-    # bm == 1 makes the in-kernel dot a matvec, which Mosaic lowers
-    # through a dtype-changing vector.broadcast that fails verification
-    # on real TPU (probed r5 on the transposed twin) — pad a single
-    # query to two rows and slice its plane back off after the fold
-    b = 2 if b0 == 1 else b0
-    if b != b0:
-        queries = jnp.pad(queries, ((0, b - b0), (0, 0)))
-        if col_add is not None:
-            col_add = jnp.pad(col_add, ((0, b - b0), (0, 0)))
-    bm = bm or _pick_bm_packed(b)
-    if queries.dtype == jnp.int8:
-        raise ValueError("bounded top-2 scan is float-domain only")
-    if b % bm or n % bn or d % WINDOW:
-        raise ValueError(
-            f"shapes must tile: B={b}%{bm}, N={n}%{bn}, d={d}%{WINDOW}"
-        )
-    nw = bn // WINDOW
-    n_tiles = n // bn
-    itemsize = queries.dtype.itemsize
-    if row_add is None:
-        row_add = jnp.zeros((1, n), jnp.float32)
-    if col_add is None:
-        col_add = jnp.zeros((b, 1), jnp.float32)
-    plane = jax.ShapeDtypeStruct((n_tiles, b, nw), jnp.int32)
-    spec = pl.BlockSpec(
-        (1, bm, nw), lambda i, j: (j, i, 0), memory_space=pltpu.VMEM
-    )
-    pk1, pk2 = pl.pallas_call(
-        functools.partial(_packed_top2_kernel, bn=bn, alpha=alpha),
-        grid=(b // bm, n_tiles),
-        in_specs=[
-            pl.BlockSpec((bm, d), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bm, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, d), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(spec, spec),
-        out_shape=(plane, plane),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * n * d,
-            bytes_accessed=n * d * itemsize + b * d * itemsize
-            + 2 * b * (n // WINDOW) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(queries, col_add, corpus, row_add)
-
-    return (
-        _fold_planes(pk1, b, n // WINDOW)[:b0],
-        _fold_planes(pk2, b, n // WINDOW)[:b0],
-    )
-
-
-def _packed_t_kernel(
-    q_ref, ca_ref, x_ref, ra_ref, out_ref, *, bn: int, acc_dtype,
-    alpha: float
-):
-    """Transposed twin of ``_packed_kernel`` (top-1 window argmax):
-    same X_tile @ Q^T trick as ``_packed_top2_t_kernel`` — sublane
-    window max, lane-aligned (nw, bm) output blocks, fold = one clean
-    2D transpose (the r4 layout fix applied to the lean/windowed
-    scan)."""
-    nw = bn // WINDOW
-    bm = q_ref.shape[0]
-    dots = jax.lax.dot_general(
-        x_ref[:],
-        q_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=acc_dtype,
-    )  # (bn, bm)
-    if acc_dtype == jnp.int32:
-        key = jnp.clip(dots, -_INT_CLAMP, _INT_CLAMP) << 7
-    else:
-        g = dots
-        if alpha != 1.0:
-            g = g * alpha
-        g = g + ca_ref[:] + ra_ref[:]
-        u = jax.lax.bitcast_convert_type(g, jnp.int32)
-        mono = jnp.where(u < 0, jnp.int32(-(2 ** 31)) - u, u)
-        key = mono & ~jnp.int32(127)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (bn, bm), 0)
-    packed = key | (127 - (lane & 127))
-    parts = [
-        jnp.max(
-            packed[w * WINDOW : (w + 1) * WINDOW, :], axis=0, keepdims=True
-        )
-        for w in range(nw)
-    ]
-    out_ref[:] = jnp.concatenate(parts, axis=0)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("bm", "bn", "alpha", "interpret")
-)
-def pallas_packed_window_scan_t(
-    queries: jnp.ndarray,  # (B, d) int8 or bf16/f32
-    corpus: jnp.ndarray,  # (N, d); N % bn == 0, d % 128 == 0
-    bm: int = 0,
-    bn: int = 1024,
-    row_add=None,  # (1, N) f32 float-domain per-row add
-    col_add=None,  # (B, 1) f32 float-domain per-query add
-    alpha: float = 1.0,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """(B, N/128) packed window stats via the TRANSPOSED kernel — the
-    ``pallas_packed_window_scan`` contract with the fold reduced to one
-    full-utilization transpose.  Float-domain keys are NOT bit-
-    identical to the straight kernel (contraction-order drift, one
-    trunc quantum — same caveat as the top-2 twin); int-domain keys
-    are exact."""
-    b0, d = queries.shape
-    n = corpus.shape[0]
-    acc_dtype = jnp.int32 if queries.dtype == jnp.int8 else jnp.float32
-    if acc_dtype == jnp.int32 and (row_add is not None or col_add is not None):
-        raise ValueError("int domain packs raw dots; no affine terms")
-    # b == 1 would make the in-kernel dot a matvec, which Mosaic lowers
-    # through a dtype-changing vector.broadcast that fails verification
-    # on real TPU (probed r5: bm=1 is the ONLY failing block at any
-    # bn) — pad a single query to two columns
-    if b0 <= 128:
-        b = 1 << (b0 - 1).bit_length() if b0 > 1 else 2
-    else:
-        b = -(-b0 // 128) * 128
-    if b != b0:
-        queries = jnp.pad(queries, ((0, b - b0), (0, 0)))
-        if col_add is not None:
-            col_add = jnp.pad(col_add, ((0, b - b0), (0, 0)))
-    bm = bm or _pick_bm_packed(b)
-    if b % bm or n % bn or d % WINDOW:
-        raise ValueError(
-            f"shapes must tile: B={b}%{bm}, N={n}%{bn}, d={d}%{WINDOW}"
-        )
-    nw = bn // WINDOW
-    n_tiles = n // bn
-    itemsize = 1 if queries.dtype == jnp.int8 else queries.dtype.itemsize
-    row_add_t = (
-        jnp.zeros((n, 1), jnp.float32) if row_add is None
-        else row_add.reshape(n, 1)
-    )
-    col_add_t = (
-        jnp.zeros((1, b), jnp.float32) if col_add is None
-        else col_add.reshape(1, b)
-    )
-    out = pl.pallas_call(
-        functools.partial(
-            _packed_t_kernel, bn=bn, acc_dtype=acc_dtype, alpha=alpha
-        ),
-        grid=(b // bm, n_tiles),
-        in_specs=[
-            pl.BlockSpec((bm, d), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bm), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, d), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, 1), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (nw, bm), lambda i, j: (j, i), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((n // WINDOW, b), jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * n * d,
-            bytes_accessed=n * d * itemsize + b * d * itemsize
-            + b * (n // WINDOW) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(queries, col_add_t, corpus, row_add_t)
-    return jax.lax.optimization_barrier(out.T[:b0])
-
-
-def _packed_top2_t_kernel(
-    q_ref, ca_ref, x_ref, ra_ref, *plane_refs, bn: int,
-    acc_dtype, alpha: float
-):
-    """Transposed twin of ``_packed_top2_kernel``: computes
-    ``dots_T = X_tile @ Q^T`` so window rows land on SUBLANES.
-
-    Why: the straight kernel's (n_tiles, B, nw) output has an nw-lane
-    minor dim, and folding it to (B, NW) costs a low-utilization
-    relayout (~1.4 ms/plane at nw=4 — docs/PERFORMANCE.md round-3;
-    VERDICT r4 item 1 names the two plane transposes as the fat).
-    Here the per-window max is a sublane reduction whose result is a
-    NATIVE (1, bm) lane vector, the output block is (nw, bm) into a
-    (NW, B) plane, and the caller pays ONE full-lane-utilization 2D
-    transpose for both planes.
-
-    Int domain (int8 inputs -> int32 accumulation): keys pack the RAW
-    clamped integer dots (EXACT — no rounding anywhere), shifted by 7
-    for the lane bits; affine terms don't apply (per-window scales and
-    the l2 corrections rejoin at the plane level —
-    ``ops.bounded_topk.bounded_exact_topk_int8``)."""
-    nw = bn // WINDOW
-    bm = q_ref.shape[0]
-    dots = jax.lax.dot_general(
-        x_ref[:],
-        q_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=acc_dtype,
-    )  # (bn, bm)
-    if acc_dtype == jnp.int32:
-        key = jnp.clip(dots, -_INT_CLAMP, _INT_CLAMP) << 7
-    else:
-        g = dots
-        if alpha != 1.0:
-            g = g * alpha
-        g = g + ca_ref[:] + ra_ref[:]  # ca (1, bm), ra (bn, 1)
-        u = jax.lax.bitcast_convert_type(g, jnp.int32)
-        mono = jnp.where(u < 0, jnp.int32(-(2 ** 31)) - u, u)
-        key = mono & ~jnp.int32(127)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (bn, bm), 0)
-    packed = key | (127 - (lane & 127))
-    n_planes = len(plane_refs)
-    parts = [[] for _ in range(n_planes)]
-    for w in range(nw):
-        ps = packed[w * WINDOW : (w + 1) * WINDOW, :]
-        # successive masked maxes: packed keys are unique within a
-        # window (lane bits), so each == mask removes exactly one row
-        for p in range(n_planes):
-            pmax = jnp.max(ps, axis=0, keepdims=True)  # (1, bm) lanes
-            parts[p].append(pmax)
-            if p + 1 < n_planes:
-                ps = jnp.where(ps == pmax, _I32_MIN_P, ps)
-    for p, ref in enumerate(plane_refs):
-        ref[:] = jnp.concatenate(parts[p], axis=0)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("bm", "bn", "alpha", "interpret", "planes")
-)
-def pallas_packed_window_scan_top2_t(
-    queries: jnp.ndarray,  # (B, d) bf16/f32 (float domain) or int8
-    corpus: jnp.ndarray,  # (N, d); N % bn == 0, d % 128 == 0
-    bm: int = 0,
-    bn: int = 1024,
-    row_add=None,  # (1, N) f32 per-row add (-|x|^2 for l2, -inf masks)
-    col_add=None,  # (B, 1) f32 per-query add (-|q|^2)
-    alpha: float = 1.0,
-    interpret: bool = False,
     planes: int = 2,
+    interpret: bool = False,
 ):
-    """(pk1, pk2[, pk3]) (B, NW) packed planes via the TRANSPOSED
-    kernel — same contract as ``pallas_packed_window_scan_top2``, with
-    the plane fold reduced to one clean 2D transpose.  ``planes=3``
-    adds the third-best plane (one more masked sublane max per window)
-    — the large-k bounded design's third-row bound
-    (``bounded_topk``).  NOT bit-identical to the straight/XLA twins:
-    the contraction order (X@Q^T vs Q@X^T) shifts f32 accumulation, so
-    scores sitting on a truncation boundary can flip one quantum —
-    exactly the drift class ``bounded_topk``'s margins (_EPS_ACC)
-    cover; end-to-end exactness is unchanged
-    (tests/test_bounded_topk.py)."""
+    """Tuple of ``planes`` (B, N/128) int32 packed planes: the window
+    argmax key, the runner-up key and (planes=3) the third key — the
+    contract of ``bounded_topk.packed_window_scan_top2``/``_top3`` and
+    (planes=1) ``window_scan.packed_window_scan``."""
     b0, d = queries.shape
     n = corpus.shape[0]
-    acc_dtype = jnp.int32 if queries.dtype == jnp.int8 else jnp.float32
-    if acc_dtype == jnp.int32 and (row_add is not None or col_add is not None):
-        raise ValueError("int domain packs raw dots; no affine terms")
-    # the (nw, bm) output block's minor dim must be 128-divisible or
-    # equal to the full batch axis (Mosaic lane tiling): pad the batch
-    # so a conforming bm exists — padded queries are zeros whose plane
-    # columns are sliced off after the fold.  b == 1 would make the
-    # in-kernel dot a matvec, which Mosaic lowers through a dtype-
-    # changing vector.broadcast that fails verification on real TPU
-    # (probed r5: bm=1 is the ONLY failing block at any bn) — pad a
-    # single query to two columns
-    if b0 <= 128:
-        b = 1 << (b0 - 1).bit_length() if b0 > 1 else 2
-    else:
-        b = -(-b0 // 128) * 128
-    if b != b0:
-        queries = jnp.pad(queries, ((0, b - b0), (0, 0)))
-        if col_add is not None:
-            col_add = jnp.pad(col_add, ((0, b - b0), (0, 0)))
-    bm = bm or _pick_bm_packed(b)
-    if b % bm or n % bn or d % WINDOW:
-        raise ValueError(
-            f"shapes must tile: B={b}%{bm}, N={n}%{bn}, d={d}%{WINDOW}"
-        )
-    nw = bn // WINDOW
-    n_tiles = n // bn
-    itemsize = 1 if queries.dtype == jnp.int8 else queries.dtype.itemsize
-    row_add_t = (
-        jnp.zeros((n, 1), jnp.float32) if row_add is None
-        else row_add.reshape(n, 1)
+    if not tiles(n, d):
+        raise ValueError(f"shapes must tile: N={n}%{WINDOW}, d={d}%{_BK}")
+    nw = n // WINDOW
+    windows = _WINDOWS if nw % _WINDOWS == 0 else 1
+    bk = _BK
+    bm = _pick_bm(b0, _BM)
+    b = -(-b0 // bm) * bm
+    queries = jnp.pad(queries, ((0, b - b0), (0, 0)))
+    col = (
+        jnp.zeros((b,), jnp.float32) if col_add is None
+        else jnp.pad(col_add.reshape(b0), (0, b - b0))
     )
-    col_add_t = (
-        jnp.zeros((1, b), jnp.float32) if col_add is None
-        else col_add.reshape(1, b)
+    row = (
+        jnp.zeros((n,), jnp.float32) if row_add is None
+        else row_add.reshape(n)
     )
-    plane = jax.ShapeDtypeStruct((n // WINDOW, b), jnp.int32)
-    spec = pl.BlockSpec(
-        (nw, bm), lambda i, j: (j, i), memory_space=pltpu.VMEM
-    )
+    plane = jax.ShapeDtypeStruct((nw, b), jnp.int32)
+    out_spec = pl.BlockSpec((windows, bm), lambda i, j: (j, i))
     pks = pl.pallas_call(
         functools.partial(
-            _packed_top2_t_kernel, bn=bn, acc_dtype=acc_dtype, alpha=alpha
+            _scan_kernel, alpha=alpha, bk=bk, windows=windows
         ),
-        grid=(b // bm, n_tiles),
+        grid=(b // bm, nw // windows),
         in_specs=[
-            pl.BlockSpec((bm, d), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bm), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, d), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, 1), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((bm, d), lambda i, j: (i, 0)),
+            pl.BlockSpec((bm,), lambda i, j: (i,)),
+            pl.BlockSpec((windows * WINDOW, d), lambda i, j: (j, 0)),
+            pl.BlockSpec((windows * WINDOW,), lambda i, j: (j,)),
         ],
-        out_specs=(spec,) * planes,
+        out_specs=(out_spec,) * planes,
         out_shape=(plane,) * planes,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=4 * windows, num_stages=_STAGES
         ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * n * d,
-            bytes_accessed=n * d * itemsize + b * d * itemsize
-            + planes * b * (n // WINDOW) * 4,
-            transcendentals=0,
-        ),
+        backend="triton",
         interpret=interpret,
-    )(queries, col_add_t, corpus, row_add_t)
-    # one full-utilization 2D transpose per plane (vs the nw-lane-minor
-    # relayout of the straight kernel); barrier per the CLAUDE.md rule
-    return tuple(
-        jax.lax.optimization_barrier(pk.T[:b0]) for pk in pks
-    )
-
-
-def _pick_bm_packed(b: int) -> int:
-    """Largest power-of-two block <= min(b, 1024) dividing b (bm=1024
-    measured ~30% faster than 256: the Q block stays MXU-resident)."""
-    bm = 1
-    while bm * 2 <= min(b, 1024) and b % (bm * 2) == 0:
-        bm *= 2
-    return bm
-
-
-def pallas_ready(n: int, d: int, bn: int = 512) -> bool:
-    """Do these corpus buffer shapes satisfy the kernel tiling?"""
-    return n >= bn and n % bn == 0 and d % WINDOW == 0
+        name="packed_window_scan",
+    )(queries.astype(jnp.bfloat16), col, corpus, row)
+    return tuple(pk.T[:b0] for pk in pks)

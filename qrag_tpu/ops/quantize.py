@@ -1,14 +1,14 @@
 """Int8 symmetric quantization for the retrieval scan.
 
-The bf16 exact scan runs at ~78% of the v5e MXU peak (docs/
-PERFORMANCE.md), so the only way further up is narrower arithmetic:
-int8 halves HBM traffic per row and doubles MXU rate.  Scheme:
+Narrower arithmetic than the bf16 scan: int8 halves the bytes read per
+row, and a GPU's tensor cores run int8 at twice the bf16 rate.
+Scheme:
 
   * corpus: per-row symmetric scale  s_i = max|x_i| / 127,
     q_i = round(x_i / s_i)  (int8)
   * queries: per-query scale likewise
   * scores:  dot(x_i, q_b) ≈ s_i * t_b * (Q8 @ X8^T)[b, i]  with the
-    int32-accumulating MXU matmul
+    int32-accumulating matmul
   * selection: approx top-C on the rescaled scores, then (optionally)
     exact refinement: gather the true-precision candidate rows and
     re-score — recall governed by C, final scores exact.
@@ -73,7 +73,7 @@ def int8_scan_topk(
     from qrag_tpu.ops.topk import goodness_topk
 
     # bf16 goodness into the selector: halves the (B, N) HBM traffic
-    # that dominates the selection stage (docs/PERFORMANCE.md); exact
+    # that dominates the selection stage; exact
     # refinement downstream restores exact final scores
     vals, idx = goodness_topk(g.astype(jnp.bfloat16), k, mode="approx", oversample=1)
     return vals.astype(jnp.float32), idx
@@ -93,7 +93,10 @@ def refine_candidates(
     Returns goodness (desc) and indices."""
     cand = jnp.take(corpus_f, idx, axis=0).astype(jnp.float32)  # (B, C, d)
     q32 = queries_f.astype(jnp.float32)
-    dots = jnp.einsum("bd,bcd->bc", q32, cand, preferred_element_type=jnp.float32)
+    dots = jnp.einsum(
+        "bd,bcd->bc", q32, cand, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     if metric == "l2":
         if corpus_sqnorms is None:
             xsq = jnp.sum(cand * cand, axis=-1)

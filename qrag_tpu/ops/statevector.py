@@ -1,6 +1,6 @@
 """Batched quantum statevector ops in JAX.
 
-Implements — for real, on TPU — the circuit semantics the reference
+Implements — for real, on the accelerator — the circuit semantics the reference
 *intended* but could not run (its ``from qiskit import ... Aer, execute``
 fails under the pinned qiskit>=2.1, so the quantum path silently falls
 back to classical; SURVEY.md §0 gap 2).  The encoding circuit, from
@@ -29,7 +29,7 @@ Two evaluation paths, both exact:
   |<psi_q|psi_d>|^2 = |<phi_q|U^T U|phi_d>|^2 = |<phi_q|phi_d>|^2
   reduces to a product of per-qubit 2-vector inner products — O(n)
   real arithmetic per pair, no complex tensors, fully VPU-vectorized.
-  This is the TPU-first hot path: reranking 1k candidates at 10 qubits
+  This is the hot path: reranking 1k candidates at 10 qubits
   costs 1k×10 fused multiply-adds instead of 1k×2^10 complex ops.
 """
 
@@ -164,7 +164,7 @@ def fidelity_statevector(
 def fidelity_analytic(
     query_vec: jnp.ndarray, doc_vecs: jnp.ndarray, n_qubits: int
 ) -> jnp.ndarray:
-    """Exact fidelity via the product form — the TPU hot path.
+    """Exact fidelity via the product form — the hot path.
 
     Both encoding circuits share the same CX-ladder entangler U, which
     cancels inside the overlap: |<psi_q|psi_d>| = |<phi_q|phi_d>| where
@@ -284,7 +284,7 @@ def amplitude_fidelity(
 ) -> jnp.ndarray:
     """|<psi_q|psi_d>|^2 under amplitude encoding — for real vectors
     this is the squared cosine similarity of the truncated/renormalized
-    vectors, computed as one batched dot (MXU-friendly)."""
+    vectors, computed as one batched dot (one matmul)."""
     q = jnp.real(amplitude_encode(query_vec, n_qubits)).astype(jnp.float32)
     d = jnp.real(amplitude_encode(doc_vecs, n_qubits)).astype(jnp.float32)
     inner = jnp.einsum("...d,nd->...n", jnp.atleast_2d(q), d)

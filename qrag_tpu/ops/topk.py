@@ -6,15 +6,13 @@ the reference never actually called ``index.search`` (SURVEY.md §0 gap
 1); here search is a first-class jit-compiled op over an HBM-resident
 matrix.
 
-Scan: a single MXU matmul (optionally bf16 inputs / f32 accumulation).
+Scan: a single matmul (optionally bf16 inputs / f32 accumulation).
 L2 uses the identity ||q-x||^2 = ||q||^2 + ||x||^2 - 2 q.x so the whole
 metric is matmul + rank-1 corrections, and both metrics reduce to a
 descending "goodness" selection.
 
-Selection: measured on TPU v5e (100k x 768, B=1024), ``lax.top_k`` over
-the score matrix costs ~75x the matmul (sort-based), while the TPU's
-hardware partial-reduce (``lax.approx_max_k``) runs at matmul speed.
-Three modes:
+Selection: ``lax.top_k`` over the score matrix is sort-based, while
+``lax.approx_max_k`` is a partial reduction.  Three modes:
 
   * "exact"    — ``lax.top_k``.  FAISS-identical incl. tie order.
   * "approx"   — ``approx_max_k`` with oversampling + exact re-rank of
@@ -30,9 +28,10 @@ Three modes:
 On unit-norm vectors L2 and IP orderings coincide (d^2 = 2 - 2 q.x),
 asserted against NumPy oracles in tests.
 
-The Pallas fused scan+top-k kernel (`qrag_tpu.ops.pallas.scan_topk`)
-plugs in behind the same interface via `flat_scan_topk` and never
-materializes the (B, N) score matrix (needed once B*N*4 outgrows HBM).
+``flat_scan_topk(use_pallas=True)`` routes non-exact modes through
+the memory-lean windowed scan (``ops/window_scan.py``), which on a GPU
+runs the fused kernel of ``ops/pallas/fused_scan.py`` and never writes
+the (B, N) score matrix to device memory.
 """
 
 from __future__ import annotations
@@ -43,6 +42,9 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from qrag_tpu.ops.window_scan import f32_precision, widen_f32
+from qrag_tpu.platform import scan_route
 
 DEFAULT_OVERSAMPLE = 2
 DEFAULT_RECALL_TARGET = 0.99
@@ -65,27 +67,24 @@ def _goodness(
     metric: str,
     corpus_sqnorms: Optional[jnp.ndarray],
     valid_rows: Optional[jnp.ndarray],
-    precision=None,
 ) -> jnp.ndarray:
     """Descending-is-better score matrix (B, N); L2 goodness = -d^2.
 
-    ``precision``: on TPU, a DEFAULT-precision f32 x f32 matmul runs a
-    reduced-precision MXU pass (~2.6e-4 relative error measured on
-    v5e; bf16 inputs are unaffected — their single pass is exact given
-    the inputs).  Paths that must match the refine-domain einsum
-    (``bounded_topk._exact_scores``, near-exact at ~1e-8) pass
-    ``jax.lax.Precision.HIGHEST``; the throughput scan modes keep the
-    default (docs/PERFORMANCE.md round-5 "TPU f32 dot precision")."""
+    A product with a float32 operand runs at HIGHEST precision: its
+    scores are returned as exact and must match the refine-domain
+    einsum (``bounded_topk._exact_scores``), while a DEFAULT f32
+    product may run in TF32 on a GPU.  bf16 x bf16 needs no pin (one
+    exact pass given the inputs)."""
     dots = jnp.dot(
         queries, corpus.T, preferred_element_type=jnp.float32,
-        precision=precision,
+        precision=f32_precision(jnp.result_type(queries, corpus)),
     )
     if metric == "l2":
         if corpus_sqnorms is None:
             corpus_sqnorms = jnp.sum(
                 corpus.astype(jnp.float32) * corpus.astype(jnp.float32), axis=-1
             )
-        q32 = queries.astype(jnp.float32)
+        q32 = widen_f32(queries)  # the values the product reads
         q_sq = jnp.sum(q32 * q32, axis=-1, keepdims=True)
         g = 2.0 * dots - q_sq - corpus_sqnorms[None, :].astype(jnp.float32)
     elif metric == "ip":
@@ -216,7 +215,7 @@ def flat_scan_topk(
     oversample: int = DEFAULT_OVERSAMPLE,
     recall_target: float = DEFAULT_RECALL_TARGET,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Dispatch to the XLA (exact/approx) or Pallas scan.
+    """Dispatch to the XLA (exact/approx) or windowed scan.
 
     Returns (scores, indices): distances ascending for "l2", inner
     products descending for "ip".  Jit-traceable (no host sync); the
@@ -232,9 +231,8 @@ def flat_scan_topk(
         mode = "exact"
     if use_pallas:
         n, d = corpus.shape
-        if mode != "exact" and n >= 4096 and n % 512 == 0 and d % 128 == 0:
-            # memory-lean Mosaic path: packed window scan + exact
-            # refinement — the (B, N) score matrix never exists
+        if mode != "exact" and n >= 4096 and n % 128 == 0:
+            # memory-lean path: packed window scan + exact refinement
             # (ops/window_scan.py; approx-class recall like `mode`)
             from qrag_tpu.ops.window_scan import (
                 make_lane_rank,
@@ -251,17 +249,9 @@ def flat_scan_topk(
                 corpus_sqnorms=corpus_sqnorms,
                 valid_rows=valid_rows,
                 refine_factor=max(oversample * 4, 4),
-                backend="pallas"
-                if jax.default_backend() == "tpu"
-                else "xla",
+                backend=scan_route(n, d, corpus.dtype),
             )
             return _finalize(vals, idx, metric)
-        # NOTE: the round-1 running-buffer kernel
-        # (ops/pallas/scan_topk.py) is intentionally NOT dispatched:
-        # it measures 10-50x behind this XLA path at every production
-        # shape (docs/PERFORMANCE.md round-1 table; VERDICT r4 weak
-        # #6).  It remains in-tree as the reference implementation of
-        # the running-buffer design with its own unit tests.
     vals, idx, _ = _scan_topk_device(
         queries,
         corpus,
@@ -298,10 +288,8 @@ def scan_topk_verified_jit(
     batch exact `top_k` fallback that runs only when any row fails.
     Returns (finalized scores, indices, n_fallback_rows).
 
-    Cost on v5e at 1M x 768 / B=1024: ~52 ms/batch vs ~10.6 approx —
-    the certificate is a second full pass over the (B, N) goodness
-    and XLA materializes it (docs/PERFORMANCE.md round-3).  The
-    certificate MUST compare against the SAME evaluation of the score
+    The certificate is a second full pass over the (B, N) goodness.
+    It MUST compare against the SAME evaluation of the score
     matrix: recomputing the matmul for the certificate pass (e.g.
     behind an optimization barrier to fuse it) changes bf16->f32
     accumulation order and near-tie comparisons flip, producing

@@ -1,13 +1,9 @@
-"""Windowed scan + selection: the production retrieval pipeline.
+"""Windowed scan + selection: the memory-lean retrieval pipeline.
 
-Round-2 redesign of the scan/selection stage (VERDICT items 2-3).  The
-round-1 pipeline's wall was selection traffic: the (B, N) score matrix
-round-tripped HBM between the matmul and `approx_max_k` (~4 GB at
-1M x 768 / B=1024 — ~8 of 10.3 ms).  The fix: reduce each 128-lane
-window to ONE int32 carrying (score, lane) packed together, *inside the
-matmul's fused epilogue*, so the score matrix never reaches HBM:
+Each 128-row window of the score matrix is reduced to ONE int32 that
+carries (score, lane) packed together:
 
-    dots   = Q @ X^T                      (MXU, int8 x int8 -> int32
+    dots   = Q @ X^T                      (int8 x int8 -> int32
                                            or bf16 -> f32)
     key    = order-preserving int32 of the score  (int: dots << 7;
              f32: sign-fold bitcast with the low 7 mantissa bits
@@ -25,24 +21,12 @@ Int8 corpora use PER-WINDOW (128-row block) scales so raw int32 dots
 order correctly within a window; the scale rejoins at the plane level.
 The same windows serve both quantization groups and selection units.
 
-Backends (honest v5e measurements, 1M x 768 / B=1024, full-column
-dependence so nothing constant-folds or slice-propagates away):
-
-  * backend="pallas" (`ops.pallas.fused_scan._packed_kernel`): the
-    Mosaic matmul+epilogue runs the int8 scan in 8.6 ms (pre-quantized
-    queries; ~11 ms with per-call query quantization) — the (B, N)
-    score matrix never exists anywhere.
-  * backend="xla" (`packed_window_scan` here): XLA does NOT fuse the
-    packed epilogue into the matmul on this toolchain (~30 ms — it
-    materializes); kept as the portable reference implementation and
-    for interpret-free CPU tests.
-
-End-to-end the windowed pipeline adds plane selection (~2 ms) and an
-exact candidate re-score whose random row GATHER costs ~4 ms at C=40 —
-on v5e this lands behind the plain bf16 approx_max_k pipeline (10.3
-ms), whose matmul already runs at ~97% of the bf16 MXU peak.  The
-windowed path therefore ships as the MEMORY-LEAN option (score matrix
-never in HBM; int8 corpus is the only big read), not the default.
+Backends: ``packed_window_scan`` here is the XLA twin (the product
+and the epilogue are separate XLA operations, so the (B, N) scores
+pass through device memory) and the reference; on a GPU the float
+domain runs the fused kernel of ``ops/pallas/fused_scan.py`` instead,
+which keeps the scores in registers.  Device times: not measured on
+a GPU yet.
 """
 
 from __future__ import annotations
@@ -55,7 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 
 WINDOW = 128
-_I32_MIN = jnp.int32(-(2 ** 31))
+_I32_MIN = np.int32(-(2 ** 31))  # a NumPy scalar: a literal, not a captured array
 
 
 def _float_sort_key(x_f32: jnp.ndarray) -> jnp.ndarray:
@@ -71,6 +55,29 @@ def _float_from_key(key: jnp.ndarray) -> jnp.ndarray:
 
 
 _INT_CLAMP = (1 << 23) - 1  # |key| <= 2^23 so << 7 never overflows
+
+
+def f32_precision(dtype):
+    """Precision for a scan product with ``dtype`` inputs: HIGHEST for
+    float32, whose DEFAULT product may run in TF32 on a GPU (about 10
+    mantissa bits — far outside the certificates' f32 margins); None
+    for bf16 and int8, whose single pass is exact given the inputs."""
+    return jax.lax.Precision.HIGHEST if dtype == jnp.float32 else None
+
+
+def widen_f32(x: jnp.ndarray) -> jnp.ndarray:
+    """``x`` as float32, holding exactly values of ``x``'s own dtype.
+    Inside one graph the GPU compiler drops an f32 -> bf16 -> f32 round
+    trip as excess precision, so a query rounded to the store dtype
+    upstream in the same graph would come back unrounded; rounding
+    again keeps every reader of the query on the same values."""
+    x32 = x.astype(jnp.float32)
+    if jnp.issubdtype(x.dtype, jnp.floating) and jnp.finfo(x.dtype).bits < 32:
+        fi = jnp.finfo(x.dtype)
+        x32 = jax.lax.reduce_precision(
+            x32, exponent_bits=fi.nexp, mantissa_bits=fi.nmant
+        )
+    return x32
 
 
 def packed_window_scan(
@@ -106,6 +113,7 @@ def packed_window_scan(
             corpus,
             dimension_numbers=(((1,), (1,)), ((), ())),
             preferred_element_type=jnp.float32,
+            precision=f32_precision(queries.dtype),
         )
         if alpha != 1.0:
             dots = dots * alpha
@@ -139,6 +147,7 @@ def unpack_stats(
     jax.jit,
     static_argnames=(
         "k", "metric", "refine_factor", "selector", "backend", "exact_scores",
+        "interpret",
     ),
 )
 def windowed_scan_topk(
@@ -155,8 +164,12 @@ def windowed_scan_topk(
     valid_rows: Optional[jnp.ndarray] = None,  # (N,) bool; float domain only
     refine_factor: int = 8,
     selector: str = "auto",
-    backend: str = "xla",  # "xla" (fused epilogue) | "pallas" (Mosaic)
+    # "xla" (packed_window_scan) | "triton" (ops/pallas/fused_scan.py,
+    # float domain; callers take it from qrag_tpu.platform.scan_route);
+    # interpret runs the kernel on the CPU (tests only)
+    backend: str = "xla",
     exact_scores: bool = True,
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Fused scan -> top-C windows -> exact re-score -> top-k.
 
@@ -170,13 +183,14 @@ def windowed_scan_topk(
     the GATHER-FREE mode: returned scores are the scan-domain dot
     products straight from the packed planes (bf16/f32 domain: within
     2^-16 relative of the scan's own precision; int8 domain:
-    block-quantized, ~1% — document to callers).  Saves the ~4 ms
-    random-row gather at 1M x 768 / C=40 (docs/PERFORMANCE.md) and
-    never touches corpus_f; metric must tolerate dot-product scores
-    ("ip", or l2 on constant-norm corpora)."""
+    block-quantized, ~1% — document to callers).  Saves the (B, C)
+    random-row gather and never touches corpus_f; metric must tolerate
+    dot-product scores ("ip", or l2 on constant-norm corpora)."""
     n = corpus_scan.shape[0]
     nw = n // WINDOW
     int_domain = corpus_scan.dtype == jnp.int8
+    if int_domain and backend != "xla":
+        raise ValueError("the int8 windowed scan runs on the XLA twin only")
 
     # float domain + l2: fold the exact goodness corrections into the
     # scan epilogue so SELECTION is exact-l2-ordered even on
@@ -201,28 +215,15 @@ def windowed_scan_topk(
         row_add = bias if row_add is None else row_add + bias
 
     def scan(q_in):
-        if backend == "pallas":
+        if backend == "triton":
             from qrag_tpu.ops.pallas.fused_scan import (
-                pallas_packed_window_scan,
-                pallas_packed_window_scan_t,
+                packed_window_scan_kernel,
             )
 
-            interp = jax.default_backend() != "tpu"
-            if n % 1024 == 0:
-                # transposed kernel: lane-aligned plane blocks, fold =
-                # one clean transpose (r4 layout fix; int keys exact,
-                # float keys one-trunc-quantum class like the top-2)
-                return pallas_packed_window_scan_t(
-                    q_in, corpus_scan,
-                    bn=2048 if n % 2048 == 0 else 1024,
-                    row_add=row_add, col_add=col_add, alpha=alpha,
-                    interpret=interp,
-                )
-            return pallas_packed_window_scan(
-                q_in, corpus_scan,
-                row_add=row_add, col_add=col_add, alpha=alpha,
-                interpret=interp,
-            )
+            return packed_window_scan_kernel(
+                q_in, corpus_scan, row_add=row_add, col_add=col_add,
+                alpha=alpha, planes=1, interpret=interpret,
+            )[0]
         return packed_window_scan(
             q_in, corpus_scan, lane_rank,
             row_add=row_add, col_add=col_add, alpha=alpha,

@@ -359,7 +359,7 @@ class ElasticShardedIndex:
                 bad = self.localize_failures()
                 if not bad:
                     # mesh collective failed but every device answers
-                    # alone (e.g. ICI link issue): shrink by one
+                    # alone (e.g. an interconnect link issue): shrink by one
                     bad = [self.devices[-1]]
                 if len(bad) >= len(self.devices):
                     break  # nothing healthy to recover onto

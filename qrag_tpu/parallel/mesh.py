@@ -2,9 +2,9 @@
 
 The reference has no distributed backend at all (SURVEY.md §2/§5 —
 its "communication" is application-level HTTP).  This module is the
-rebuild's first-class replacement: a ("data", "model") mesh over ICI
-with GSPMD shardings; multi-host joins over DCN via
-``jax.distributed.initialize``.
+rebuild's first-class replacement: a ("data", "model") mesh over the
+devices' interconnect (NVLink within a host) with GSPMD shardings;
+multi-host joins via ``jax.distributed.initialize``.
 
 Axis roles:
   data  — query batches (DP) and training batches

@@ -1,10 +1,10 @@
-"""Sharded flat index: corpus rows over ICI, allgather top-k merge.
+"""Sharded flat index: corpus rows over a device mesh, allgather top-k merge.
 
 The scale-out design of SURVEY.md §2 (TP row) and BASELINE configs[4]:
 the (N, d) embedding matrix is sharded by rows across the mesh "model"
 axis; each chip scans its shard with the same goodness+top-k kernel as
 the single-chip path, then the per-shard (B, k) candidates are
-``all_gather``'d over ICI and merged locally — k·S candidates per
+``all_gather``'d over the mesh and merged locally — k·S candidates per
 query, one collective, no full-score exchange.  Queries shard across
 "data" (DP).  Sharded results match the single-device exact scan
 bit-for-bit at equal k (tie order included: the merge keeps shard-major
@@ -23,8 +23,10 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
+from qrag_tpu.ops.bounded_topk import _exact_full_sort
 from qrag_tpu.ops.topk import _goodness, goodness_topk
 from qrag_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from qrag_tpu.platform import scan_route
 
 
 def _round_up(x: int, m: int) -> int:
@@ -70,7 +72,7 @@ def _merge_over_model_axis(vals, idx, k: int, s: int, merge: str):
             trav_i = jax.lax.ppermute(trav_i, MODEL_AXIS, perm)
             acc_v, acc_i = _merge_candidates(acc_v, acc_i, trav_v, trav_i, k)
         return acc_v, acc_i
-    # one ICI collective: k candidates per shard, all-to-all-gather
+    # one collective: k candidates per shard, all-to-all-gather
     all_vals = jax.lax.all_gather(vals, MODEL_AXIS)  # (S, Bl, k)
     all_idx = jax.lax.all_gather(idx, MODEL_AXIS)
     bl = all_vals.shape[1]
@@ -204,7 +206,6 @@ def _sharded_search(
                 bounded_exact_topk,
                 window_maxnorms_device,
             )
-            from qrag_tpu.ops.window_scan import make_lane_rank
 
             nl = x.shape[0]
             if (
@@ -214,24 +215,28 @@ def _sharded_search(
             ):
                 scan = x if x.dtype == jnp.bfloat16 else x.astype(jnp.bfloat16)
                 mx = window_maxnorms_device(sq)
-                lr = jnp.asarray(make_lane_rank(nl))
-                backend = (
-                    "pallas"
-                    if jax.default_backend() == "tpu"
-                    and nl % 512 == 0
-                    and x.shape[1] % 128 == 0
-                    else "xla"
-                )
+                # built in-trace, not as a NumPy constant: a large
+                # captured constant becomes a hidden executable argument,
+                # and two merges' executables then mix up their argument
+                # counts on a repeated call
+                lr = (WINDOW - 1) - jax.lax.broadcasted_iota(
+                    jnp.int32, (1, nl), 1
+                ) % WINDOW
                 vals, idx, fb, _, esc = bounded_exact_topk(
                     q, scan, x, sq, mx, lr, k,
-                    metric=metric, valid_rows=vl, backend=backend,
+                    metric=metric, valid_rows=vl,
+                    backend=scan_route(*scan.shape, scan.dtype),
                 )
                 stats = jnp.stack(
                     [fb.astype(jnp.int32), esc.astype(jnp.int32)]
                 )
             else:
-                g = _goodness(q, x, metric, sq, vl)
-                vals, idx = goodness_topk(g, k, mode="exact")
+                vals, idx = _exact_full_sort(q, x, sq, k, metric, vl)
+        elif mode == "exact":
+            # row slices with a running merge: a product over the whole
+            # shard would need a (B, N/S) score matrix, and autotuning
+            # it a second shard-sized operand buffer
+            vals, idx = _exact_full_sort(q, x, sq, k, metric, vl)
         elif mode == "verified":
             # verified-exact sharded retrieval (VERDICT r3 weak #5: no
             # more silent approx downgrade): per-shard deep-oversample
@@ -846,7 +851,7 @@ class ShardedFlatIndex:
         ``DeviceFlatIndex``: exact w.r.t. the f32 query against the
         stored rows) unless ``bounded_query_dtype="store"`` opts into
         rounded-query exactness; scan modes cast to the store dtype so
-        the scan matmul rides the MXU's bf16 rate."""
+        the scan matmul runs at the bf16 rate."""
         self._ensure_device()
         if self._accel_eligible(queries.shape[0], k):
             return self._accel_search_device(queries, k)

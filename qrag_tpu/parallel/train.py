@@ -4,7 +4,7 @@ GSPMD style: parameters are placed with explicit NamedShardings from
 ``models.cross_encoder.partition_spec`` (attention/FFN/experts on
 "model", batch on "data"); the optimizer state inherits the parameter
 shardings by propagation; one ``jax.jit`` compiles the whole step and
-XLA inserts the ICI collectives (psum of grads over "data", activation
+XLA inserts the collectives (psum of grads over "data", activation
 collectives over "model").
 """
 

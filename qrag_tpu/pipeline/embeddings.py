@@ -163,13 +163,12 @@ def get_embedder(config: Optional[EmbeddingConfig] = None) -> Embedder:
 
         weights = config.model if os.path.isdir(config.model) else None
         import jax.numpy as jnp
+        from qrag_tpu.platform import compute_dtype
 
         bi_cfg = BiEncoderConfig(
             tower=CrossEncoderConfig(
                 max_len=128,
-                dtype=jnp.bfloat16
-                if jax.default_backend() == "tpu"
-                else jnp.float32,
+                dtype=compute_dtype(),
             ),
             out_dim=config.dim,
         )

@@ -1,12 +1,12 @@
 """Classical reranker.
 
-TPU-native counterpart of the reference's CrossEncoder reranker
+JAX counterpart of the reference's CrossEncoder reranker
 (``src/reranker/classical.py:45-320``).  The reference scored
 (query, doc) pairs with a torch CrossEncoder on CPU/CUDA; here the
 scorer is pluggable and runs under jit:
 
 * "cosine" (default): embed query+docs (pluggable embedder) and score
-  by cosine similarity — one MXU matmul over the candidate batch.
+  by cosine similarity — one matmul over the candidate batch.
 * "cross-encoder": the JAX cross-encoder model
   (``qrag_tpu/models/cross_encoder.py``), batched forward pass.
 

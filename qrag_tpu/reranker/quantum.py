@@ -1,6 +1,6 @@
 """Quantum fidelity reranker.
 
-Implements — actually runnable on TPU — the semantics the reference's
+Implements — actually runnable on the device — the semantics the reference's
 ``QuantumReranker`` (``src/reranker/quantum.py:22-185``) specified but
 could not execute (its qiskit import fails under the pinned version, so
 it always fell back to classical; SURVEY.md §0 gap 2).
@@ -39,7 +39,7 @@ logger = logging.getLogger(__name__)
 
 
 class QuantumReranker:
-    """Statevector-fidelity reranker, batched on TPU."""
+    """Statevector-fidelity reranker, batched on the device."""
 
     def __init__(
         self,

@@ -1,8 +1,8 @@
 """Dynamic request batching for serving.
 
 Concurrent HTTP requests each carry a handful of queries, but the
-device scan amortizes massively with batch size (one 1024-query batch
-costs barely more than a 1-query one — docs/PERFORMANCE.md).  The
+device scan amortizes with batch size (every query of a batch shares
+one read of the corpus).  The
 batcher aggregates queries from concurrent requests into one device
 call: callers enqueue (vectors, k) and block on a future; a worker
 drains the queue, pads the combined batch to a power-of-two bucket

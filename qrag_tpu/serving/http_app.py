@@ -439,7 +439,7 @@ def main(argv=None) -> None:
         "gather-free scoring (quantization=int8, quant_scan=window, "
         "exact_scores=False) — the (B, N) score matrix never exists "
         "and candidate rows are never gathered; returned scores are "
-        "approximate (block-int8, ~1%%; docs/PERFORMANCE.md)",
+        "approximate (block-int8, ~1%%)",
     )
     parser.add_argument(
         "--topk-mode",
@@ -454,7 +454,7 @@ def main(argv=None) -> None:
         default=None,
         choices=["bf16", "int8"],
         help="with --topk-mode bounded: scan arithmetic — 'int8' runs "
-        "the exact-integer scan at the int8 MXU rate with margins "
+        "the exact-integer int8 scan with margins "
         "covering the quantization residual (still provably exact)",
     )
     parser.add_argument(
@@ -464,8 +464,7 @@ def main(argv=None) -> None:
         help="with --topk-mode bounded: 'store' rounds queries to the "
         "store dtype first — exact w.r.t. the ROUNDED query (the "
         "fp16-store contract), narrow margins + lean budgets on a "
-        "bf16 store (~81k vs 65.5k QPS; PERFORMANCE.md margin-regime "
-        "census).  Default float32 = exact w.r.t. the query as given",
+        "bf16 store.  Default float32 = exact w.r.t. the query as given",
     )
     parser.add_argument(
         "--small-batch-accel",

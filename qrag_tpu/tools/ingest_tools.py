@@ -1,7 +1,7 @@
 """The four ingestion tools (reference: ``mcp/server/tools/*.py``).
 
 Same tool names, input/output shapes and error contracts as the
-reference's MCP tools, with TPU-native internals: embeddings come from
+reference's MCP tools, with JAX internals: embeddings come from
 the pluggable provider (mock/hash/openai), the index store writes the
 FAISS-compatible flat format via ``qrag_tpu.index.faiss_io`` (no
 faiss-cpu), and transcripts come from a storage backend (local dir or

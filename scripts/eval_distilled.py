@@ -1,11 +1,10 @@
-"""Rerank-quality eval of a DISTILLED cross-encoder vs the shipped one
-(VERDICT r3 item 6: report rerank_eval top-1/MRR/nDCG@10 against the
-fine-tuned cross-encoder, then ship or reject).
+"""Rerank-quality eval of a DISTILLED cross-encoder vs the shipped one:
+report rerank_eval top-1/MRR/nDCG@10 against the fine-tuned
+cross-encoder, then ship or reject.
 
 Uses the SAME protocol as models/rerank_eval.run_eval: the full
 transcript corpus, episode-held-out eval cases with same-topic hard
-distractors — so numbers are directly comparable with
-docs/PERFORMANCE.md round-3's table.
+distractors — so numbers are directly comparable with its table.
 
     python scripts/eval_distilled.py --weights /tmp/distilled_student
 """

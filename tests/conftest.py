@@ -1,7 +1,7 @@
 """Test configuration.
 
 Tests run on CPU with 8 fake devices so the multi-chip sharding paths
-(mesh + pjit + collective top-k merge) execute without TPU hardware —
+(mesh + pjit + collective top-k merge) execute without GPU hardware —
 the strategy SURVEY.md §4.3 prescribes.  Benchmarks (bench.py) run on
 the real chip instead.
 """

@@ -196,29 +196,6 @@ def test_int8_valid_rows_and_padding_windows(rng):
     assert (np.asarray(res[1]) < n - 300).all()
 
 
-def test_int8_pallas_interpret_matches_xla(rng):
-    """The int-domain transposed Mosaic kernel is EXACT (integer
-    arithmetic): planes must match the XLA twin bit-for-bit."""
-    from qrag_tpu.ops.pallas.fused_scan import (
-        pallas_packed_window_scan_top2_t,
-    )
-
-    n, d, b = 4096, 128, 8
-    x = rng.randn(n, d).astype(np.float32)
-    q = rng.randn(b, d).astype(np.float32)
-    q8x, _ = quantize_block_rows(x)
-    q8 = np.clip(np.round(q * 127 / np.abs(q).max(1, keepdims=True)), -127, 127
-                 ).astype(np.int8)
-    ref = packed_window_scan_top2_int(
-        jnp.asarray(q8), jnp.asarray(q8x), jnp.asarray(make_lane_rank(n))
-    )
-    got = pallas_packed_window_scan_top2_t(
-        jnp.asarray(q8), jnp.asarray(q8x), bn=1024, interpret=True
-    )
-    for r, g in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(g))
-
-
 @pytest.mark.parametrize("seed", range(8))
 def test_int8_seed_sweep_exact(seed):
     rng = np.random.RandomState(100 + seed)

@@ -233,105 +233,6 @@ def test_top2_scan_oracle(rng):
     np.testing.assert_array_equal(lane, gr.argmax(2))
 
 
-@pytest.mark.parametrize("metric", ["ip", "l2"])
-def test_pallas_top2_parity(rng, metric):
-    """The Mosaic top-2 kernel (interpret mode off-TPU) matches the
-    XLA reference twin: plane value bounds within last-ulp
-    accumulation drift (the two backends may fuse the affine epilogue
-    differently — a score sitting exactly on a truncation boundary
-    can flip one quantum; the bounded margins cover exactly this
-    class of drift)."""
-    from qrag_tpu.ops.bounded_topk import plane_value_bounds
-    from qrag_tpu.ops.pallas.fused_scan import pallas_packed_window_scan_top2
-
-    n, d, b = 4096, 128, 8
-    x = rng.randn(n, d).astype(np.float32)
-    q = rng.randn(b, d).astype(np.float32)
-    sq = (x ** 2).sum(1)
-    alpha, ra, ca = 1.0, None, None
-    if metric == "l2":
-        alpha = 2.0
-        ra = -jnp.asarray(sq)[None, :]
-        ca = -jnp.sum(jnp.asarray(q) ** 2, axis=1, keepdims=True)
-    ref = packed_window_scan_top2(
-        jnp.asarray(q), jnp.asarray(x), jnp.asarray(make_lane_rank(n)),
-        row_add=ra, col_add=ca, alpha=alpha,
-    )
-    got = pallas_packed_window_scan_top2(
-        jnp.asarray(q), jnp.asarray(x),
-        row_add=ra, col_add=ca, alpha=alpha, interpret=True,
-    )
-    for r, g_ in zip(ref, got):
-        _, hi_r = plane_value_bounds(r)
-        _, hi_g = plane_value_bounds(g_)
-        np.testing.assert_allclose(
-            np.asarray(hi_r), np.asarray(hi_g), rtol=1e-4, atol=1e-3
-        )
-    # argmax lanes agree wherever the trunc keys agree (they differ
-    # only when a score sits on a truncation boundary)
-    same_key = np.asarray(ref[0] & ~127) == np.asarray(got[0] & ~127)
-    assert same_key.mean() > 0.99
-    lane_ref = np.asarray(ref[0]) & 127
-    lane_got = np.asarray(got[0]) & 127
-    np.testing.assert_array_equal(lane_ref[same_key], lane_got[same_key])
-
-
-@pytest.mark.parametrize("metric", ["ip", "l2"])
-@pytest.mark.parametrize("bsize", [8, 24])
-def test_pallas_top2_transposed_parity(rng, metric, bsize):
-    """The TRANSPOSED Mosaic top-2 kernel (sublane window max, (NW, B)
-    blocks — the r4 fold-killer) matches the XLA twin within the same
-    one-trunc-quantum accumulation-drift contract as the straight
-    kernel; non-pow2 batches exercise the internal batch padding."""
-    from qrag_tpu.ops.bounded_topk import plane_value_bounds
-    from qrag_tpu.ops.pallas.fused_scan import (
-        pallas_packed_window_scan_top2_t,
-    )
-
-    n, d, b = 4096, 128, bsize
-    x = rng.randn(n, d).astype(np.float32)
-    q = rng.randn(b, d).astype(np.float32)
-    sq = (x ** 2).sum(1)
-    alpha, ra, ca = 1.0, None, None
-    if metric == "l2":
-        alpha = 2.0
-        ra = -jnp.asarray(sq)[None, :]
-        ca = -jnp.sum(jnp.asarray(q) ** 2, axis=1, keepdims=True)
-    ref = packed_window_scan_top2(
-        jnp.asarray(q), jnp.asarray(x), jnp.asarray(make_lane_rank(n)),
-        row_add=ra, col_add=ca, alpha=alpha,
-    )
-    got = pallas_packed_window_scan_top2_t(
-        jnp.asarray(q), jnp.asarray(x), bn=1024,
-        row_add=ra, col_add=ca, alpha=alpha, interpret=True,
-    )
-    assert got[0].shape == ref[0].shape
-    for r, g_ in zip(ref, got):
-        _, hi_r = plane_value_bounds(r)
-        _, hi_g = plane_value_bounds(g_)
-        np.testing.assert_allclose(
-            np.asarray(hi_r), np.asarray(hi_g), rtol=1e-4, atol=1e-3
-        )
-    # the transposed contraction (X@Q^T) genuinely reorders the f32
-    # accumulation: at d=128 the order drift (~d*eps_f32) is a full
-    # trunc quantum, so boundary flips are expected at the percent
-    # level — the VALUE bounds above are the binding check
-    same_key = np.asarray(ref[0] & ~127) == np.asarray(got[0] & ~127)
-    assert same_key.mean() > 0.9
-    lane_ref = np.asarray(ref[0]) & 127
-    lane_got = np.asarray(got[0]) & 127
-    np.testing.assert_array_equal(lane_ref[same_key], lane_got[same_key])
-
-
-def test_bounded_pallas_backend_exact(rng):
-    n, d, b, k = 16384, 128, 8, 10
-    x = rng.randn(n, d).astype(np.float32)
-    q = rng.randn(b, d).astype(np.float32)
-    res = _run(q, x, "l2", k, backend="pallas")
-    assert not bool(res[2])
-    _assert_exact(q, x, "l2", k, res)
-
-
 def test_topk_tiebreak_matches_lax(rng):
     g = np.array([[1.0, 3.0, 3.0, -np.inf, 2.0]], np.float32)
     idx = np.array([[40, 30, 10, 0, 20]], np.int32)
@@ -645,40 +546,6 @@ def test_large_k_bf16_scan_margins(rng):
     _assert_exact(q, x, "l2", k, res, atol=5e-3)
 
 
-def test_pallas_top3_transposed_parity(rng):
-    """planes=3 on the transposed Mosaic kernel matches the XLA top-3
-    twin within the one-trunc-quantum accumulation-drift contract."""
-    from qrag_tpu.ops.bounded_topk import (
-        packed_window_scan_top3,
-        plane_value_bounds,
-    )
-    from qrag_tpu.ops.pallas.fused_scan import (
-        pallas_packed_window_scan_top2_t,
-    )
-
-    n, d, b = 4096, 128, 8
-    x = rng.randn(n, d).astype(np.float32)
-    q = rng.randn(b, d).astype(np.float32)
-    sq = (x ** 2).sum(1)
-    ra = -jnp.asarray(sq)[None, :]
-    ca = -jnp.sum(jnp.asarray(q) ** 2, axis=1, keepdims=True)
-    ref = packed_window_scan_top3(
-        jnp.asarray(q), jnp.asarray(x), jnp.asarray(make_lane_rank(n)),
-        row_add=ra, col_add=ca, alpha=2.0,
-    )
-    got = pallas_packed_window_scan_top2_t(
-        jnp.asarray(q), jnp.asarray(x), bn=1024,
-        row_add=ra, col_add=ca, alpha=2.0, interpret=True, planes=3,
-    )
-    assert len(got) == 3
-    for r, g_ in zip(ref, got):
-        _, hi_r = plane_value_bounds(r)
-        _, hi_g = plane_value_bounds(g_)
-        np.testing.assert_allclose(
-            np.asarray(hi_r), np.asarray(hi_g), rtol=1e-4, atol=1e-3
-        )
-
-
 def test_auto_runner_budget():
     from qrag_tpu.ops.bounded_topk import _auto_runner_budget
 
@@ -688,7 +555,7 @@ def test_auto_runner_budget():
 
 
 def test_large_k_dense_regime_escalates_not_full_sorts(rng):
-    """k ~ NW/5 (the TPU-smoke shape that exposed the hard P=2 cap):
+    """k ~ NW/5 (the smoke-test shape that exposed the hard P=2 cap):
     the margin band piles several triple-collision-class windows onto
     one query — measured max 9 flagged at k=100, NW=512, far over 2.
     The widened per-query patch cap (P ~ 4x the triple Poisson mean,
@@ -713,7 +580,7 @@ def test_margin_coeff_domains():
 
 def test_auto_budgets_regimes():
     """The (C, F) defaults follow the margin REGIME (census + timed
-    sweeps in docs/PERFORMANCE.md round-4 final): narrow dtype-equal
+    sweeps): narrow dtype-equal
     paths get the lean budgets, f32-queries-vs-bf16-store the mid
     tier, and a refine domain that differs from the scan store the
     wide tier.  Guards the regression where the narrow threshold sat
@@ -830,3 +697,57 @@ def test_bounded_query_rounding_config_plumbing():
     )
     eng = QragEngine(config=cfg)
     assert eng.index.bounded_query_dtype == "store"
+
+
+@pytest.mark.parametrize("rows", [384, 1000, 1 << 16])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_exact_full_sort_row_chunks_match_full_top_k(monkeypatch, rng, rows, store):
+    """The fallback scores the corpus in row chunks (the last one
+    clamped to end at N) and merges with the lower-index tie rule: it
+    must equal lax.top_k over the whole refine-domain score matrix,
+    duplicates across chunk boundaries and masked rows included."""
+    from qrag_tpu.ops import bounded_topk as bt
+
+    monkeypatch.setattr(bt, "_full_sort_rows", lambda chunk, n, *_: min(n, rows))
+    n, d, b, k = 4096, 64, 5, 12
+    x = rng.randn(n, d).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[[383, 384, 999, 1000, 4095]] = x[7]  # ties across chunk edges
+    valid = np.ones(n, bool)
+    valid[[1000, 2000]] = False
+    q = np.concatenate([x[7:8] + 0.01, rng.randn(b - 1, d)]).astype(np.float32)
+    xf = jnp.asarray(x, getattr(jnp, store))
+    sq = jnp.sum(xf.astype(jnp.float32) ** 2, axis=1)
+    vals, idx = bt._exact_full_sort(
+        jnp.asarray(q), xf, sq, k, "l2", jnp.asarray(valid)
+    )
+    g = _goodness(jnp.asarray(q), xf.astype(jnp.float32), "l2", sq, jnp.asarray(valid))
+    want_v, want_i = jax.lax.top_k(g, k)
+    np.testing.assert_array_equal(np.asarray(idx), np.asarray(want_i))
+    # another product shape may sum d in another order: f32 noise only
+    np.testing.assert_allclose(
+        np.asarray(vals), np.asarray(want_v), rtol=0, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize(
+    "chunk, n, store, score, want",
+    [
+        # 1M x 768 f32 store, 128 queries: 512 MB of scores, every row
+        (128, 1_000_448, "float32", "float32", 1_000_448),
+        # a bf16 store scored in f32: the f32 copy does not fit, slices do
+        (128, 1_000_448, "bfloat16", "float32", (1 << 30) // (512 + 3072)),
+        # a 25M-row bf16 shard with bf16 queries: (64, 25M) scores would
+        # be 6.4 GB; a slice and its scores stay inside the budget
+        (64, 25_034_752, "bfloat16", "bfloat16", (1 << 30) // (256 + 1536)),
+        (5, 40, "float32", "float32", 40),
+    ],
+)
+def test_full_sort_rows_fit_the_budget(chunk, n, store, score, want):
+    from qrag_tpu.ops import bounded_topk as bt
+
+    got = bt._full_sort_rows(chunk, n, 768, jnp.dtype(store), jnp.dtype(score))
+    assert got == want
+    if got < n:
+        width = jnp.dtype(score).itemsize * 768
+        assert got * (4 * chunk + width) <= bt._FULL_SORT_BYTES

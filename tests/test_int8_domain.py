@@ -205,16 +205,6 @@ def test_full_sort_small_corpus():
     )
 
 
-def test_pallas_interpret_path():
-    # the Mosaic int front-end (interpret mode off-TPU) feeds the same
-    # tail; N % 1024 == 0 and d % 128 == 0 per the kernel tiling
-    rng = np.random.default_rng(6)
-    x = rng.standard_normal((16384, 128), np.float32)
-    q = rng.standard_normal((4, 128), np.float32)
-    x8, scales, isq = _quantize(x)
-    _check(q, x8, scales, isq, 10, "l2", backend="pallas", interpret=True)
-
-
 def test_query_quantization_matches_numpy():
     rng = np.random.default_rng(7)
     q = rng.standard_normal((16, 96)).astype(np.float32)

@@ -9,7 +9,7 @@ Three layers of proof, all CPU-sized:
      production cosine fallback (HashEmbedder cosine,
      reranker/classical.py:76) on held-out episodes;
   3. fine-tuning machinery runs (loss finite, params update).
-Full-size numbers: docs/PERFORMANCE.md round-3 (rerank_eval.py).
+Full-size numbers: `python -m qrag_tpu.models.rerank_eval`.
 """
 
 import numpy as np

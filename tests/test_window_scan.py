@@ -162,53 +162,6 @@ def test_windowed_topk_padding_rows_never_surface(rng):
     assert np.isfinite(np.asarray(vals)).all()
 
 
-def test_pallas_packed_scan_matches_xla(rng):
-    """The Mosaic packed kernel and the XLA fused-epilogue scan emit
-    bit-identical packed planes (same downstream glue serves both)."""
-    from qrag_tpu.ops.pallas.fused_scan import pallas_packed_window_scan
-
-    n, d, b = 1024, 128, 16
-    x = rng.randn(n, d).astype(np.float32)
-    q = rng.randn(b, d).astype(np.float32)
-    lane_rank = jnp.asarray(make_lane_rank(n))
-    ref = packed_window_scan(jnp.asarray(q), jnp.asarray(x), lane_rank)
-    got = pallas_packed_window_scan(
-        jnp.asarray(q), jnp.asarray(x), bn=512, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-    # int8 domain
-    x8, _ = quantize_block_rows(x)
-    q8 = np.clip(np.round(q * 30), -127, 127).astype(np.int8)
-    ref = packed_window_scan(jnp.asarray(q8), jnp.asarray(x8), lane_rank)
-    got = pallas_packed_window_scan(
-        jnp.asarray(q8), jnp.asarray(x8), bn=512, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_windowed_topk_pallas_backend_end_to_end(rng):
-    n, d, b, k = 131072, 128, 8, 10
-    x = rng.randn(n, d).astype(np.float32)
-    x /= np.linalg.norm(x, axis=1, keepdims=True)
-    q = rng.randn(b, d).astype(np.float32)
-    sq = (x * x).sum(1)
-    x8, bscale = quantize_block_rows(x)
-    vx, ix = windowed_scan_topk(
-        jnp.asarray(q), jnp.asarray(x8), jnp.asarray(x),
-        jnp.asarray(make_lane_rank(n)), k, metric="l2",
-        corpus_sqnorms=jnp.asarray(sq), window_scale=jnp.asarray(bscale),
-        refine_factor=8, selector="top_k", backend="xla",
-    )
-    vp, ip_ = windowed_scan_topk(
-        jnp.asarray(q), jnp.asarray(x8), jnp.asarray(x),
-        jnp.asarray(make_lane_rank(n)), k, metric="l2",
-        corpus_sqnorms=jnp.asarray(sq), window_scale=jnp.asarray(bscale),
-        refine_factor=8, selector="top_k", backend="pallas",
-    )
-    np.testing.assert_array_equal(np.asarray(ix), np.asarray(ip_))
-    np.testing.assert_allclose(np.asarray(vx), np.asarray(vp), rtol=1e-5)
-
-
 def test_windowed_topk_gather_free_mode(rng):
     """exact_scores=False ranks by plane values (no candidate-row
     gather): bf16/f32 domain indices match the refined path; scores are
@@ -369,48 +322,3 @@ def test_windowed_l2_affine_selection_on_wild_norms(rng):
     assert recall >= 0.95, recall
 
 
-def test_pallas_packed_scan_transposed_parity(rng):
-    """The transposed top-1 kernel (r4): int-domain keys bit-exact vs
-    the XLA reference; float-domain within one trunc quantum (the
-    contraction-order caveat of its top-2 twin)."""
-    import jax.numpy as jnp
-
-    from qrag_tpu.ops.pallas.fused_scan import pallas_packed_window_scan_t
-    from qrag_tpu.ops.window_scan import (
-        make_lane_rank,
-        packed_window_scan,
-        quantize_block_rows,
-    )
-
-    n, d, b = 4096, 128, 8
-    x = rng.randn(n, d).astype(np.float32)
-    q = rng.randn(b, d).astype(np.float32)
-    lr = jnp.asarray(make_lane_rank(n))
-    # int domain: exact integer dots -> bit parity required
-    q8x, _ = quantize_block_rows(x)
-    q8 = np.clip(
-        np.round(q * 127 / np.abs(q).max(1, keepdims=True)), -127, 127
-    ).astype(np.int8)
-    ref = packed_window_scan(jnp.asarray(q8), jnp.asarray(q8x), lr)
-    got = pallas_packed_window_scan_t(
-        jnp.asarray(q8), jnp.asarray(q8x), bn=1024, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
-    # float domain: keys within one truncation step
-    sq = (x ** 2).sum(1)
-    ra = -jnp.asarray(sq)[None, :]
-    ca = -jnp.sum(jnp.asarray(q) ** 2, axis=1, keepdims=True)
-    ref_f = packed_window_scan(
-        jnp.asarray(q), jnp.asarray(x), lr, row_add=ra, col_add=ca, alpha=2.0
-    )
-    got_f = pallas_packed_window_scan_t(
-        jnp.asarray(q), jnp.asarray(x), bn=1024,
-        row_add=ra, col_add=ca, alpha=2.0, interpret=True,
-    )
-    key_r = np.asarray(ref_f) & ~np.int32(127)
-    key_g = np.asarray(got_f) & ~np.int32(127)
-    assert (np.abs(key_r - key_g) <= 128).all()
-    same = key_r == key_g
-    assert same.mean() > 0.9
-    lane_r, lane_g = np.asarray(ref_f) & 127, np.asarray(got_f) & 127
-    np.testing.assert_array_equal(lane_r[same], lane_g[same])
